@@ -1,10 +1,10 @@
-"""opv_tpu — a TPU-native (JAX/XLA/Pallas) framework for the Opulent Voice
+"""opv_tpu — a JAX/XLA/Pallas framework for the Opulent Voice
 (OPV) amateur-radio digital voice modem.
 
 Re-designed from scratch against the behavior of the reference C++ modem
 (OpenResearchInstitute/opv-cxx-demod): MSK modulator, MSK demodulator with
 AFC + symbol-timing recovery + soft-decision Viterbi, and a UDP modem server
-— re-architected as batched, sharded TPU computation.
+— re-architected as batched, sharded accelerator computation.
 
 Layout (see SURVEY.md for the reference layer map this mirrors):
   core/     numerology + codec chain (base40, LFSR, conv code, interleaver,
@@ -14,7 +14,8 @@ Layout (see SURVEY.md for the reference layer map this mirrors):
   rx/       demodulator stages: CFO estimator, correlator/loop scan, sync
             tracker, Viterbi, frame finisher, feed-forward + locked-grid
             pipelines
-  ops/      Pallas TPU kernels for the hot ops (+ XLA reference impls)
+  ops/      the Pallas-Triton Viterbi kernel for the GPU (+ XLA reference
+            impls) and the backend registry
   stream/   streaming runtimes: single-channel parity, N-channel tracking,
             N-channel feed-forward overlap-save; checkpointable state
   parallel/ device-mesh sharding: channel-parallel, time-sharded blocks

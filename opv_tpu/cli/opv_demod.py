@@ -10,7 +10,7 @@ Options:
   -a BW     AFC bandwidth (default 0.001)
   -o HZ     initial frequency offset (skips the coarse estimate)
   -p HZ     PLL bandwidth (coherent only; accepted for compat)
-  --fast    feed-forward batched TPU pipeline instead of the
+  --fast    feed-forward batched pipeline instead of the
             reference-parity tracking loop.  In streaming mode this runs
             the locked-grid production engine (stream/locked.py):
             acquisition once, symbol-rate steady body, flywheel +
@@ -28,20 +28,21 @@ Options:
             tagged [ch N] on stderr; input is processed in one-frame-per-
             channel quanta (86,720 x K samples), so expect ~2 frames of
             latency
-  --buf DT  (with -s --fast) stream-buffer dtype: auto (default: int8 on
-            TPU, float32 elsewhere), float32, bfloat16, or int8 (fastest;
-            the quantization step follows the input level per channel —
-            AGC, see stream/locked.py _agc_update)
+  --buf DT  (with -s --fast) stream-buffer dtype: auto (default:
+            float32), float32, bfloat16, or int8 (the quantization step
+            follows the input level per channel — AGC, see
+            stream/locked.py _agc_update)
   --block N (with -s --fast) frames per engine block (default 4; 2 with
             --wideband).  Larger blocks amortize the per-block host round
             trip over more air time and fold deeper per timing retime
-            (BER_r04.json's locked_streaming rows use 12) at +40 ms
-            latency per frame — but timing corrections happen at block
+            (the BER head-to-heads also run 12) at +40 ms latency per
+            frame — but timing corrections happen at block
             boundaries, so sample-clock drift tolerance shrinks with N
             (slip per block must stay well under half a symbol: ~5 ppm
             at the default 4; keep the default for free-running
             crystals, go large for disciplined/GPSDO sources)
-  --device  jax platform (default cpu)
+  --device  jax platform: cpu (default) or gpu; the run fails if the
+            platform has no device
 
 Exit code 0 iff at least one frame decoded (opv-demod.cpp:1124, 1216).
 """

@@ -8,10 +8,11 @@ Options:
   -t TOKEN  24-bit token (default 0xBBAADD)
   -c        continuous BERT looping
   -v        verbose
-  --fast    closed-form waveform synthesis (TPU path; IQ may differ from the
-            reference by at most 1 LSB).  Default is the reference-exact
-            float64 path.
-  --device  jax platform (default cpu)
+  --fast    closed-form float32 waveform synthesis (the path the receive
+            bench runs; IQ may differ from the reference by at most
+            1 LSB).  Default is the reference-exact float64 path.
+  --device  jax platform: cpu (default) or gpu; the exact float64 path
+            gives byte-identical IQ on both
 
 Output: interleaved little-endian int16 IQ on stdout, 100 zero-symbols flush
 at EOF (opv-mod.cpp:528-530).  Exit codes and stderr messages match the

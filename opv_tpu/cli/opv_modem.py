@@ -18,6 +18,9 @@ Options:
   --fast      serve with the locked-grid engine: float32 DSP AND the
               locked-grid streaming demod replaces the reference-parity
               tracking loop in -l/-R (real-time serving; docs/migration.md)
+  --device    jax platform: cpu (default) or gpu.  A JAX process that
+              opens the GPU reserves most of its memory, so run one
+              GPU modem per card (scripts/opv-pluto.sh)
 
 Architecturally this replaces the reference's fork/exec demod subprocess +
 pipe plumbing (opv-modem.cpp:349-477) with an in-process StreamingDemodulator
@@ -128,9 +131,7 @@ def main(argv=None) -> int:
         float64 tracking loop (StreamingDemodulator).  --fast: the
         feed-forward locked-grid engine (stream/locked.py) behind the same
         (frame_bytes, metric, q, idx) result tuples — the production
-        serving path (MODEM_r05.json: --fast loopback cadence p50
-        46.4 ms at 6.88x real-time burst vs the exact engine's 58.4 ms
-        at 2.5x).
+        serving path (tools/modem_bench.py measures both).
         block_frames=1 + eager=True minimize serving latency: eager mode
         emits a steady frame as soon as its sync+payload+one-symbol slack
         is buffered (~1 frame time of gate — the reference modem's own
@@ -203,8 +204,8 @@ def main(argv=None) -> int:
     from opv_tpu.io.udp import UDPFrameBridge
     import jax
 
-    # batch-1 encode runs once per datagram; eagerly it costs ~5 ms of
-    # per-op dispatch overhead vs ~0.3 ms compiled (MODEM_r02.json splits)
+    # batch-1 encode runs once per datagram: one compiled program instead
+    # of dozens of eager per-op dispatches
     enc_jit = jax.jit(encode_frame)
     try:
         bridge = UDPFrameBridge(port=args.port)

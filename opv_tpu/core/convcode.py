@@ -9,7 +9,7 @@ six inputs (most recent in bit 0), and outputs
 State bit 6 is the current input u[i]; state bit k (k<=5) is u[i-1-k].  So a
 mask bit at position 6 contributes delay 0, and a mask bit at position k<=5
 contributes delay k+1.  The whole encode therefore reduces to XORing a few
-delayed copies of the input bitstream — one fused elementwise op on TPU, with
+delayed copies of the input bitstream — one fused elementwise op, with
 zero-padding at the front reproducing the fresh (all-zero) shift register the
 reference uses per frame (opv-mod.cpp:160-161; truncated, not terminated).
 """

@@ -6,7 +6,7 @@ The reference scatters bit i of the encoded stream to position
     dest = (pos / 8) * 8 + (7 - pos % 8)        # per-byte bit reversal
 
 (src/opv-mod.cpp:142-153).  The demodulator applies the identical closed form
-as a gather (`deinterleave_addr`, src/opv-demod.cpp:792-795).  On TPU both
+as a gather (`deinterleave_addr`, src/opv-demod.cpp:792-795).  Both
 directions are single gathers with permutation tables computed once at import.
 """
 

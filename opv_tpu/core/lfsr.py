@@ -3,7 +3,7 @@
 The reference runs an 8-bit LFSR (x^8+x^7+x^5+x^3+1, seed 0xFF, MSB-first
 output) bytewise over every frame (src/opv-mod.cpp:97-113 and the inline
 derandomizer src/opv-demod.cpp:887-895).  Because the LFSR is re-seeded for
-every frame, the whole randomizer is a *constant* 134-byte mask — so on TPU it
+every frame, the whole randomizer is a *constant* 134-byte mask — so it
 is a single vectorized XOR with a precomputed table rather than a serial
 bit recurrence.
 """

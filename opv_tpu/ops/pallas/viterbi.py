@@ -1,453 +1,207 @@
-"""Pallas TPU kernel: batched 64-state soft-decision Viterbi.
+"""Pallas-Triton kernel: batched 64-state soft-decision Viterbi for the GPU.
 
 Same trellis semantics as opv_tpu.rx.viterbi (reference parity:
-src/opv-demod.cpp:800-847) but executed as ONE kernel per lane tile —
-metrics, decisions, and the traceback all live in VMEM, avoiding the
-1072-step XLA while-loop's per-iteration HBM traffic.
+src/opv-demod.cpp:800-847), run as ONE launch for the whole batch: the ACS
+recurrence and the traceback both stay inside the kernel, where the XLA
+scan pays one loop iteration (and a (B, 64) decision slab in device memory)
+per trellis step.
 
-Layout (Mosaic-native):
-  * the frame batch rides the LANE axis (128/256 frames per tile),
-  * the 64 trellis states ride the SUBLANE axis,
-  * the trellis time axis is the major dimension of every dynamically
-    indexed ref (soft, bits, decision words),
-  * decisions are BIT-PACKED int32 words per (step, frame) holding the 64
-    per-state survivor choices, so the decision tape is ~2 MB of VMEM.
+Layout:
+  * one frame per thread, `block_frames` frames per program (a power of
+    two, `block_frames // 32` warps);
+  * the 64 state metrics are 64 register vectors and the ACS is unrolled
+    in Python over states, so every parent index, expected code bit and
+    packing shift is a compile-time constant: no shuffles, no gathers;
+  * soft symbols are read as a (1072, 2, B) int16 tape, one coalesced
+    row per step, prefetched one step ahead of the recurrence;
+  * decisions are packed into two int32 words per step (bit s % 32 of word
+    s // 32 is state s's survivor choice) and stored as a (1072, 2, B)
+    tape in device memory (~8.6 KB per frame, so a 1280-frame batch stays
+    in L2); the traceback reads it back in the same launch.
 
-Gather-free: ancestor metrics via sublane repeat-reshape, branch metrics
-from (64, 1) expected-bit table inputs, traceback via per-lane shift/mask
-of the packed words.
+The recurrence is radix-2 (one trellis step per loop iteration).  A
+radix-4 form (two steps fused into one 4-way compare: half the
+iterations at ~1.25x the work each) measured slower on the H100
+(PERF.md), so it was not kept.
 
-Two ACS formulations (RADIX):
-  * radix-2: one trellis step per recurrence iteration (_viterbi_kernel),
-  * radix-4 (default): two steps fused into one 4-way compare
-    (_viterbi_kernel_r4) — 536 serial iterations instead of 1072 at ~1.5x
-    the vector work each, measured -38% on v5e.  Exactness argument and
-    tie-order proof in the kernel docstring; an independent plain-XLA
-    implementation of the same fusion (rx/viterbi.py viterbi_decode_r4)
-    cross-validates it in tests.
+Unreachable states (the INT_MAX guard of the reference) are resolved at
+trace time: after t steps from state 0 exactly the states s < 2^t are
+reachable, so the first six steps are unrolled with their unreachable
+candidates replaced by the INT_MAX constant and the loop needs no guard.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from opv_tpu.config import CONFIG
-from opv_tpu.rx.viterbi import _tables
 
 _NS = CONFIG.num_states          # 64
+_HALF = _NS // 2
 _FB = CONFIG.frame_bits          # 1072
 _INF = np.int32(0x7FFFFFFF)
-_GUARD = np.int32(0x7FFFFFF0)
+# steps after which every state is reachable from state 0 (2^6 = 64)
+_PROLOGUE = 6
 
-# trellis steps that keep the INT_MAX reachability guard: state s first
-# becomes reachable at step ceil(log2(s+1)) <= 6, so after 8 steps every
-# metric is finite and the steady ACS loop can drop the guard entirely
-_GUARD_STEPS = 8
-
-# frames per kernel instance (lane-axis width, multiple of 128).  The ACS
-# recurrence and traceback are SERIAL over 1072 trellis steps, so per-step
-# loop overhead is amortized over the lane width: wider tiles trade VMEM
-# (~21 KB/frame for soft+decisions+bits) for fewer sequential grid steps.
-# Amortized v5e sweep (64ch x 20f = 1280 frames): 128 -> 2.93 ms,
-# 256 -> 2.57 ms, 512 -> scoped-VMEM OOM (16.79 M > 16 M limit).  Default
-# is batch-adaptive: 256 when the batch fills at least one wide tile, 128
-# below that (small streaming batches would pay 2x padding at 256).
-# Overridable per-call or via OPV_VITERBI_TILE for hardware sweeps.
-B_TILE = int(os.environ.get("OPV_VITERBI_TILE", "0")) or None
-
-# trellis steps per loop iteration (ACS and traceback).  The vector work
-# per step is fixed; unrolling U steps per iteration divides BOTH the
-# serial-loop management overhead and the number of dynamically indexed
-# VMEM accesses by U (soft loads / decision stores become one (U, 2, B)
-# block access instead of U separate (2, B) ones).  Must divide 1072
-# (= 16 x 67): 1, 2, 4, 8, 16.  v5e amortized sweep at t256, 1280 frames
-# (fetch-timed, interleaved reps): u1 1.70-1.94, u2 1.47-1.49, u4 1.52-1.82,
-# u8 2.01, u16 2.10 ms — u2 wins; past u4 the longer kernel body loses more
-# to scheduling than the loop amortization gains.  Hardware-validated
-# bit-exact vs the XLA scan for every factor.
-UNROLL = int(os.environ.get("OPV_VITERBI_UNROLL", "2"))
-
-# survivor-word packing strategy: "vpu" (two 32-row weighted sublane
-# reductions) or "mxu" (one tiny f32 dot per step — exact, see
-# _viterbi_kernel).  v5e amortized sweep at t256 u2 (same session):
-# vpu 1.32 ms, mxu 1.48 ms — the per-step MXU round trip costs more than
-# the sublane reduction tree saves, so vpu is the default.
-PACK = os.environ.get("OPV_VITERBI_PACK", "vpu")
-
-# ACS radix: 2 = one trellis step per recurrence iteration, 4 = two steps
-# fused into one 4-way compare (_viterbi_kernel_r4) — half the serial chain
-# at slightly more vector work per iteration.  v5e amortized, 1280 frames,
-# t256 u2, same session: radix-4 0.872 ms vs radix-2 1.294 ms (-33%).
-# Hardware caveat: radix-4 u4 and radix-2 u8 crash the remote Mosaic
-# compiler ("Check failed: limits[i] <= dim(i)" / tpu_compile_helper
-# dying on a signal) — and the crash is GRID-SIZE-DEPENDENT AND
-# SESSION-DEPENDENT: a 2026-08-20 session compiled both clean at 300
-# frames (2 grid tiles, bit-exact on the tie-stress matrix) yet still
-# crashed at 1280 frames (5 tiles), 2/2 contained attempts each; the
-# HWVALIDATE_r04 artifact's "FIXED-reenable-candidate" came from a
-# different session where even the 1280-frame canary happened to pass —
-# the round-5 re-run (HWVALIDATE_r05.json, canary_protocol) crashed all
-# three combos 2/2 again, settling the contradiction: the crash is alive,
-# r04's FIXED was a session fluke.  So they stay quarantined; the
-# hw_validate canaries (contained subprocesses, BOTH geometries, now 2/2
-# clean runs + a second session required before FIXED) are the mechanism
-# that notices a real toolchain fix.  u1/u2 validated bit-exact
-# repeatedly.  u2 is the default and fastest.
-RADIX = int(os.environ.get("OPV_VITERBI_RADIX", "4"))
-
-def _default_tile(bsz: int) -> int:
-    return B_TILE or (256 if bsz >= 256 else 128)
+# frames per program (one per thread, so block_frames // 32 warps); the
+# H100 sweep over 32/64/128 is flat within noise (PERF.md)
+BLOCK_FRAMES = 128
 
 
-def _expected_cols():
-    """(4, 64) expected-bit tables -> (64, 4) column layout for sublanes."""
-    _, _, e1_0, e2_0, e1_1, e2_1 = _tables()
-    return np.stack([e1_0, e2_0, e1_1, e2_1], axis=1).astype(np.int32)
+def _parity(x: int) -> int:
+    return bin(x).count("1") & 1
 
 
-def _pack_weights():
-    """(8, 64) MXU packing matrix: row r holds weights 2^0..2^15 over states
-    16r..16r+15 (rows 4-7 zero — sublane padding to the (8, 128) tile)."""
-    w = np.zeros((8, _NS), np.float32)
-    for r in range(4):
-        w[r, 16 * r : 16 * (r + 1)] = 2.0 ** np.arange(16)
-    return w
+@functools.lru_cache(maxsize=None)
+def _expected(state: int, parent: int) -> tuple[int, int]:
+    """Expected (g1, g2) code bits on the transition parent -> state."""
+    reg = ((state & 1) << 6) | parent
+    return _parity(reg & CONFIG.g1_mask), _parity(reg & CONFIG.g2_mask)
 
 
-def _expected_cols_r4():
-    """(64, 8) expected-bit tables for the radix-4 kernel, indexed by the
-    FINAL state s of a fused double-step:
-      col 0/1: e1, e2 for the second step's p0 parent (same as radix-2),
-      col 2/3: e1, e2 for the first step (g -> p) when p = s>>1      (bp=0),
-      col 4/5: e1, e2 for the first step when p = s>>1 + 32          (bp=1),
-      col 6/7: zero padding (lane-dim tile).
-    Upper-parent (bg=1 / bp=1 second-step) variants follow from the bit-5
-    polynomial symmetry: e1 unchanged, e2 flipped."""
-    _, _, e1_0, e2_0, _, _ = _tables()
-    s = np.arange(_NS)
-    pa = s >> 1                     # second-step p0 parent / bp=0 intermediate
-    pb = pa + _NS // 2
-    cols = np.stack([e1_0, e2_0,
-                     e1_0[pa], e2_0[pa],
-                     e1_0[pb], e2_0[pb],
-                     np.zeros(_NS, np.int32), np.zeros(_NS, np.int32)],
-                    axis=1)
-    return cols.astype(np.int32)
+def _branch_metrics(sg1, sg2):
+    """The four branch metrics of one step, keyed by the expected bits."""
+    sm = CONFIG.soft_max
+    a = (sg1, sm - sg1)
+    b = (sg2, sm - sg2)
+    return {(e1, e2): a[e1] + b[e2] for e1 in (0, 1) for e2 in (0, 1)}
 
 
-def _viterbi_kernel(exp_ref, wpk_ref, soft_ref, bits_ref, metric_ref,
-                    dec_ref, *, b_tile, unroll, pack, tb=True):
-    e1_0 = exp_ref[:, 0:1]                           # (64, 1)
-    e2_0 = exp_ref[:, 1:2]
-    soft_max = jnp.int32(CONFIG.soft_max)
-
-    states = jax.lax.broadcasted_iota(jnp.int32, (_NS, b_tile), 0)
-    weight = jnp.int32(1) << (states % 32)           # per-state pack weight
-    wpk = wpk_ref[...]                               # (8, 64) MXU pack rows
-
-    metrics0 = jnp.where(states == 0, jnp.int32(0), _INF)
-
-    def acs_sub(metrics, sg1, sg2, guarded):
-        """One radix-2 ACS update from (1, B) soft rows -> metrics, (2, B)
-        packed survivor words.
-
-        Branch-metric symmetry: g1 (0x4F) has trellis bit 5 CLEAR and g2
-        (0x6D) has it SET, so for parent p1 = p0 + 32 the expected g1 bit is
-        unchanged and the g2 bit flips: bm1 = a - b + soft_max where
-        bm0 = a + b (two selects instead of four).
-
-        `guarded` applies the INT_MAX reachability guard; every state is
-        structurally reachable after step 6, so only the first 8 steps need
-        it — the steady loop drops the two compare+selects per step.
-        """
-        a = jnp.where(e1_0 == 1, soft_max - sg1, sg1)          # (64, B)
-        b = jnp.where(e2_0 == 1, soft_max - sg2, sg2)
-        bm0 = a + b
-        bm1 = a - b + soft_max
-        # parent p0 = s>>1: repeat lower half along sublanes; p1: upper half
-        # (jnp.repeat — Mosaic rejects the broadcast_to+reshape equivalent)
-        mp0 = jnp.repeat(metrics[: _NS // 2], 2, axis=0)
-        mp1 = jnp.repeat(metrics[_NS // 2 :], 2, axis=0)
-        if guarded:
-            m0 = jnp.where(mp0 < _GUARD, mp0 + bm0, _INF)
-            m1 = jnp.where(mp1 < _GUARD, mp1 + bm1, _INF)
-        else:
-            m0 = mp0 + bm0
-            m1 = mp1 + bm1
-        dec = m1 < m0                                # (64, B); ties -> p0
-        # pack survivor bits: word0 = states 0..31, word1 = states 32..63
-        # (all values kept 2-D — Mosaic mislowers 1-D vectors)
-        if pack == "mxu":
-            # one tiny MXU dot replaces the two 32-row weighted reductions.
-            # Exact: weights are powers of two <= 2^15 (exactly bf16, so
-            # f32 operands split losslessly for the MXU's bf16 passes),
-            # dec is 0/1, accumulation is f32 and the 16-term row sums stay
-            # < 2^16 — every product and partial sum is representable.
-            decw = jax.lax.dot_general(
-                wpk, dec.astype(jnp.float32),
-                (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32).astype(jnp.int32)
-            w0 = decw[0:1] + decw[1:2] * 65536       # states 0..15 | 16..31
-            w1 = decw[2:3] + decw[3:4] * 65536       # states 32..47 | 48..63
-        else:
-            packed = dec.astype(jnp.int32) * weight
-            w0 = jnp.sum(packed[: _NS // 2], axis=0, keepdims=True)  # (1, B)
-            w1 = jnp.sum(packed[_NS // 2 :], axis=0, keepdims=True)
-        return jnp.minimum(m0, m1), jnp.concatenate([w0, w1], axis=0)
-
-    def acs_block(j, metrics, base, guarded):
-        # one dynamic load / store of `unroll` trellis steps; the sub-steps
-        # index the loaded block statically
-        t = base + j * unroll
-        sg_u = soft_ref[pl.ds(t, unroll)].astype(jnp.int32)  # (U, 2, B)
-        words = []
-        for k in range(unroll):
-            metrics, w = acs_sub(metrics, sg_u[k, 0:1, :], sg_u[k, 1:2, :],
-                                 guarded)
-            words.append(w[None])
-        dec_ref[pl.ds(t, unroll)] = (
-            words[0] if unroll == 1 else jnp.concatenate(words, axis=0))
-        return metrics
-
-    metrics = jax.lax.fori_loop(
-        0, _GUARD_STEPS // unroll,
-        functools.partial(acs_block, base=0, guarded=True), metrics0)
-    metrics = jax.lax.fori_loop(
-        0, (_FB - _GUARD_STEPS) // unroll,
-        functools.partial(acs_block, base=_GUARD_STEPS, guarded=False),
-        metrics)
-
-    # Mosaic argmin supports float32 only, and its tie-breaking differs from
-    # XLA's first-occurrence rule (the reference scans states upward,
-    # opv-demod.cpp:836-837).  Make ties impossible with a composite key
-    # metric*64 + state — max value ~9.6e5 is exactly representable in f32.
-    composite = (metrics * _NS + states).astype(jnp.float32)
-    best = jnp.argmin(composite, axis=0, keepdims=True).astype(jnp.int32)
-    metric_ref[pl.ds(0, 1)] = jnp.min(metrics, axis=0, keepdims=True)
-
-    def tb_block(j, s):                                          # s (1, B)
-        tb = _FB - unroll - j * unroll
-        words_u = dec_ref[pl.ds(tb, unroll)]                     # (U, 2, B)
-        # bits are stored one row at a time: a multi-row dynamic store on
-        # the 2-D (1072, B) ref hits the sublane axis, and Mosaic requires
-        # provable 8-alignment there ("cannot statically prove that index
-        # in dimension 0 is a multiple of 8"); single-row stores lower at
-        # any index.  The expensive access (the decision-word load) is
-        # still one (U, 2, B) block per iteration.
-        for k in reversed(range(unroll)):
-            bits_ref[pl.ds(tb + k, 1)] = s & 1
-            words = words_u[k]                                   # (2, B)
-            sel = jnp.where(s < _NS // 2, words[0:1, :], words[1:2, :])
-            took_p1 = (sel >> (s % 32)) & 1
-            s = jnp.where(took_p1 == 1, (s >> 1) + _NS // 2, s >> 1)
-        return s
-
-    if tb:  # stage_bench --vit-split hook: time ACS alone
-        jax.lax.fori_loop(0, _FB // unroll, tb_block, best)
+def _pack(flags):
+    """32 boolean vectors -> one int32 word, flag k in bit k."""
+    bit = [np.uint32(1 << k).view(np.int32) for k in range(len(flags))]
+    word = jnp.where(flags[0], bit[0], np.int32(0))
+    for k in range(1, len(flags)):
+        word = word | jnp.where(flags[k], bit[k], np.int32(0))
+    return word
 
 
-def _viterbi_kernel_r4(exp_ref, soft_ref, bits_ref, metric_ref, dec_ref,
-                       *, b_tile, unroll, tb=True):
-    """Radix-4 ACS: two trellis steps fused into one 4-way compare, halving
-    the serial recurrence length (536 fused steps instead of 1072).
-
-    Exactness: the 4 grandparent candidates of final state s are
-    g = (s>>2) + 16*bp + 32*bg with combined branch metric
-    bm(g->p) + bm(p->s), p = (s>>1) + 32*bp.  The intermediate INT_MAX
-    clamp is equivalent to clamping on M[g] alone (finite metrics never
-    approach the guard), and the priority-ordered pairwise min tree
-    (bg within bp, then bp) reproduces the sequential radix-2 tie rules
-    exactly: ties prefer the lower grandparent, then the lower parent.
-
-    Decision tape: (536, 4, B) packed words [bp_w0, bp_w1, bg_w0, bg_w1];
-    traceback reconstructs the intermediate state p (and its bit) from bp,
-    then hops to the grandparent via bg."""
-    E1b = exp_ref[:, 0:1]                            # (64, 1) second step
-    E2b = exp_ref[:, 1:2]
-    E1a0 = exp_ref[:, 2:3]                           # first step, bp=0
-    E2a0 = exp_ref[:, 3:4]
-    E1a1 = exp_ref[:, 4:5]                           # first step, bp=1
-    E2a1 = exp_ref[:, 5:6]
-    soft_max = jnp.int32(CONFIG.soft_max)
-
-    states = jax.lax.broadcasted_iota(jnp.int32, (_NS, b_tile), 0)
-    weight = jnp.int32(1) << (states % 32)
-    metrics0 = jnp.where(states == 0, jnp.int32(0), _INF)
-    q = _NS // 4
-
-    def _pack(dec):
-        packed = dec.astype(jnp.int32) * weight
-        return (jnp.sum(packed[: _NS // 2], axis=0, keepdims=True),
-                jnp.sum(packed[_NS // 2 :], axis=0, keepdims=True))
-
-    def acs2(metrics, sg, guarded):
-        sg1a, sg2a = sg[0:1, :], sg[1:2, :]          # first step (t)
-        sg1b, sg2b = sg[2:3, :], sg[3:4, :]          # second step (t+1)
-        a2 = jnp.where(E1b == 1, soft_max - sg1b, sg1b)
-        b2 = jnp.where(E2b == 1, soft_max - sg2b, sg2b)
-        bmB0 = a2 + b2                               # second step via p0
-        bmB1 = a2 - b2 + soft_max                    # via p1 (bit-5 symmetry)
-        a10 = jnp.where(E1a0 == 1, soft_max - sg1a, sg1a)
-        b10 = jnp.where(E2a0 == 1, soft_max - sg2a, sg2a)
-        a11 = jnp.where(E1a1 == 1, soft_max - sg1a, sg1a)
-        b11 = jnp.where(E2a1 == 1, soft_max - sg2a, sg2a)
-        c00 = bmB0 + a10 + b10                       # (bp, bg) combined bm
-        c01 = bmB0 + a10 - b10 + soft_max
-        c10 = bmB1 + a11 + b11
-        c11 = bmB1 + a11 - b11 + soft_max
-        m00 = jnp.repeat(metrics[0 * q : 1 * q], 4, axis=0)   # g = s>>2
-        m10 = jnp.repeat(metrics[1 * q : 2 * q], 4, axis=0)   # + 16
-        m01 = jnp.repeat(metrics[2 * q : 3 * q], 4, axis=0)   # + 32
-        m11 = jnp.repeat(metrics[3 * q : 4 * q], 4, axis=0)   # + 48
-        if guarded:
-            c00 = jnp.where(m00 < _GUARD, m00 + c00, _INF)
-            c01 = jnp.where(m01 < _GUARD, m01 + c01, _INF)
-            c10 = jnp.where(m10 < _GUARD, m10 + c10, _INF)
-            c11 = jnp.where(m11 < _GUARD, m11 + c11, _INF)
-        else:
-            c00 = m00 + c00
-            c01 = m01 + c01
-            c10 = m10 + c10
-            c11 = m11 + c11
-        # decisions as int32 immediately — Mosaic rejects selects on i1
-        # values ("Unsupported target bitwidth for truncation")
-        dga = (c01 < c00).astype(jnp.int32)          # bg within bp=0
-        va = jnp.minimum(c00, c01)
-        dgb = (c11 < c10).astype(jnp.int32)          # bg within bp=1
-        vb = jnp.minimum(c10, c11)
-        bp = (vb < va).astype(jnp.int32)             # ties -> bp=0
-        bg = jnp.where(bp == 1, dgb, dga)
-        wp0, wp1 = _pack(bp)
-        wg0, wg1 = _pack(bg)
-        return (jnp.minimum(va, vb),
-                jnp.concatenate([wp0, wp1, wg0, wg1], axis=0))
-
-    def acs_block(j, metrics, base, guarded):
-        t = base + j * unroll                        # in double-steps
-        sg_u = soft_ref[pl.ds(t, unroll)].astype(jnp.int32)   # (U, 4, B)
-        for k in range(unroll):
-            metrics, w = acs2(metrics, sg_u[k], guarded)
-            # single-row stores; the expensive block access (the soft
-            # load) stays one (U, 4, B).  NOTE u4 needs the 2026-08-20+
-            # Mosaic toolchain (earlier ones crash — see RADIX note)
-            dec_ref[pl.ds(t + k, 1)] = w[None]
-        return metrics
-
-    ds = _FB // 2
-    g4 = _GUARD_STEPS // 2
-    metrics = jax.lax.fori_loop(
-        0, g4 // unroll,
-        functools.partial(acs_block, base=0, guarded=True), metrics0)
-    metrics = jax.lax.fori_loop(
-        0, (ds - g4) // unroll,
-        functools.partial(acs_block, base=g4, guarded=False), metrics)
-
-    composite = (metrics * _NS + states).astype(jnp.float32)
-    best = jnp.argmin(composite, axis=0, keepdims=True).astype(jnp.int32)
-    metric_ref[pl.ds(0, 1)] = jnp.min(metrics, axis=0, keepdims=True)
-
-    def tb_block(j, s):                              # s (1, B)
-        td = ds - unroll - j * unroll
-        words_u = dec_ref[pl.ds(td, unroll)]         # (U, 4, B)
-        for k in reversed(range(unroll)):
-            w = words_u[k]                           # (4, B)
-            bits_ref[pl.ds(2 * (td + k) + 1, 1)] = s & 1
-            selp = jnp.where(s < _NS // 2, w[0:1, :], w[1:2, :])
-            bp = (selp >> (s % 32)) & 1
-            p = (s >> 1) + bp * (_NS // 2)
-            bits_ref[pl.ds(2 * (td + k), 1)] = p & 1
-            selg = jnp.where(s < _NS // 2, w[2:3, :], w[3:4, :])
-            bg = (selg >> (s % 32)) & 1
-            s = (p >> 1) + bg * (_NS // 2)
-        return s
-
-    if tb:  # stage_bench --vit-split hook: time ACS alone
-        jax.lax.fori_loop(0, ds // unroll, tb_block, best)
+def _reachable(state: int, t: int) -> bool:
+    """Whether `state` can hold a finite metric before trellis step t."""
+    return t >= _PROLOGUE or state < (1 << t)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("interpret", "b_tile", "unroll", "pack",
-                                    "radix", "_tb"))
+def _acs(metrics, sg, t_static):
+    """One trellis step -> (new metrics, 2 decision words).
+
+    t_static is the step index inside the prologue (unreachable parents
+    become INT_MAX) and None in the loop."""
+    bm = _branch_metrics(sg[0], sg[1])
+    inf = jnp.full_like(metrics[0], _INF)
+    new, dec = [], []
+    for s in range(_NS):
+        cand = []
+        for p in (s >> 1, (s >> 1) + _HALF):
+            if t_static is None or _reachable(p, t_static):
+                cand.append(metrics[p] + bm[_expected(s, p)])
+            else:
+                cand.append(inf)
+        dec.append(cand[1] < cand[0])                    # ties -> p0
+        new.append(jnp.minimum(cand[0], cand[1]))
+    return tuple(new), (_pack(dec[:_HALF]), _pack(dec[_HALF:]))
+
+
+def _kernel(soft_ref, bits_ref, metric_ref, dec_ref, *, interpret):
+    """soft_ref (1072, 2, bf) int16; bits_ref (1072, bf) int8;
+    metric_ref (bf,) int32; dec_ref (1072, 2, bf) int32 decision tape."""
+    steps = soft_ref.shape[0]
+
+    def load_soft(i):
+        return (soft_ref[i, 0, :].astype(jnp.int32),
+                soft_ref[i, 1, :].astype(jnp.int32))
+
+    def store_dec(i, w):
+        dec_ref[i, 0, :] = w[0]
+        dec_ref[i, 1, :] = w[1]
+
+    zero = jnp.zeros(soft_ref.shape[2:], jnp.int32)
+    metrics = tuple(zero if s == 0 else zero + _INF for s in range(_NS))
+    for i in range(_PROLOGUE):
+        metrics, w = _acs(metrics, load_soft(i), i)
+        store_dec(i, w)
+
+    def acs_body(i, carry):
+        metrics, sg = carry[:_NS], carry[_NS:]
+        nxt = load_soft(jnp.minimum(i + 1, steps - 1))   # prefetch
+        metrics, w = _acs(metrics, sg, None)
+        store_dec(i, w)
+        return metrics + nxt
+
+    carry = jax.lax.fori_loop(_PROLOGUE, steps, acs_body,
+                              metrics + load_soft(_PROLOGUE))
+    metrics = carry[:_NS]
+
+    # end state: first minimum over states (opv-demod.cpp:836-837)
+    best_m, best_s = metrics[0], zero
+    for s in range(1, _NS):
+        better = metrics[s] < best_m
+        best_m = jnp.where(better, metrics[s], best_m)
+        best_s = jnp.where(better, jnp.int32(s), best_s)
+    metric_ref[...] = best_m
+
+    if not interpret:
+        # the tape was written by other threads' stores as far as the
+        # memory model knows; make them visible before the traceback
+        plgpu.debug_barrier()
+
+    def load_dec(i):
+        return dec_ref[i, 0, :], dec_ref[i, 1, :]
+
+    def tb_body(j, carry):
+        s, w0, w1 = carry
+        i = steps - 1 - j
+        nxt = load_dec(jnp.maximum(i - 1, 0))            # prefetch
+        bits_ref[i, :] = (s & 1).astype(jnp.int8)
+        word = jnp.where(s < _HALF, w0, w1)
+        took_p1 = (word >> (s & (_HALF - 1))) & 1
+        return ((s >> 1) + _HALF * took_p1,) + nxt
+
+    jax.lax.fori_loop(0, steps, tb_body, (best_s,) + load_dec(steps - 1))
+
+
+@functools.partial(jax.jit, static_argnames=("interpret", "block_frames"))
 def viterbi_pallas(soft: jnp.ndarray, interpret: bool = False,
-                   b_tile: int | None = None, unroll: int | None = None,
-                   pack: str | None = None, radix: int | None = None,
-                   _tb: bool = True):
-    """Batched Viterbi via the Pallas kernel.
+                   block_frames: int | None = None):
+    """Batched Viterbi through the Pallas-Triton kernel.
 
-    soft: (B, 2144) int32 quantized soft symbols (values < 2^15 — stored
-    int16 in VMEM); B padded to b_tile (default: batch-adaptive 256/128,
-    env OPV_VITERBI_TILE overrides).
-    unroll: trellis steps (radix-2) or fused double-steps (radix-4) per
-    loop iteration (default UNROLL / OPV_VITERBI_UNROLL; 1, 2, 4 or 8 —
-    radix-4 allows 1, 2, 4).
-    pack: survivor-word packing — "vpu" (weighted sublane reductions,
-    default) or "mxu" (tiny f32 dot); OPV_VITERBI_PACK overrides.
-    radix: 2 (one trellis step per ACS) or 4 (fused double-steps, half the
-    serial chain); default RADIX / OPV_VITERBI_RADIX.
-    Returns (bits (B, 1072) int32, metrics (B,) int32).
+    soft: (B, 2144) int32 quantized soft symbols (values < 2^15; the kernel
+    reads them as int16).  B is padded to a multiple of block_frames
+    (default BLOCK_FRAMES, a power of two >= 32).  interpret runs the
+    kernel through the Pallas interpreter (CPU tests).
+    Returns (bits (B, 1072) uint8, metrics (B,) int32).
     """
-    u = unroll or UNROLL
-    r = radix or RADIX
-    assert r in (2, 4), r
-    pk = pack or PACK
-    assert pk in ("mxu", "vpu"), pk
-    steps = _FB // (r // 2)                          # serial ACS iterations
-    assert steps % u == 0 and (_GUARD_STEPS * 2 // r) % u == 0, (r, u)
-    bt = b_tile or _default_tile(soft.shape[0])
+    bf = block_frames or BLOCK_FRAMES
+    if bf < 32 or bf & (bf - 1):
+        raise ValueError(f"block_frames must be a power of two >= 32, "
+                         f"got {bf}")
     bsz = soft.shape[0]
-    pad = (-bsz) % bt
+    pad = (-bsz) % bf
     if pad:
         soft = jnp.pad(soft, ((0, pad), (0, 0)))
-    nb = soft.shape[0] // bt
-    # layout: (steps, 2 or 4, Btot) — time major, the step's soft symbols
-    # on sublanes, batch lanes.  int16 storage halves the kernel's largest
-    # VMEM block (the quantized soft range is 0..7; anything < 2^15 is
-    # exact).
-    soft_t = soft.astype(jnp.int16).reshape(-1, steps, 2 * r // 2)
-    soft_t = soft_t.transpose(1, 2, 0)
+    btot = soft.shape[0]
+    # (1072, 2, B): one coalesced row of frames per soft symbol
+    tape = soft.astype(jnp.int16).reshape(btot, _FB, 2).transpose(1, 2, 0)
 
-    if r == 4:
-        exp = jnp.asarray(_expected_cols_r4())       # (64, 8)
-        kern = functools.partial(_viterbi_kernel_r4, b_tile=bt, unroll=u,
-                                 tb=_tb)
-        in_specs = [pl.BlockSpec((_NS, 8), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((steps, 4, bt), lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM)]
-        operands = (exp, soft_t)
-        scratch = pltpu.VMEM((steps, 4, bt), jnp.int32)
-    else:
-        exp = jnp.asarray(_expected_cols())          # (64, 4)
-        wpk = jnp.asarray(_pack_weights())           # (8, 64)
-        kern = functools.partial(_viterbi_kernel, b_tile=bt, unroll=u,
-                                 pack=pk, tb=_tb)
-        in_specs = [pl.BlockSpec((_NS, 4), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((8, _NS), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                    pl.BlockSpec((steps, 2, bt), lambda i: (0, 0, i),
-                                 memory_space=pltpu.VMEM)]
-        operands = (exp, wpk, soft_t)
-        scratch = pltpu.VMEM((steps, 2, bt), jnp.int32)
-
-    bits_t, metric = pl.pallas_call(
-        kern,
-        grid=(nb,),
-        in_specs=in_specs,
-        out_specs=(pl.BlockSpec((_FB, bt), lambda i: (0, i),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((1, bt), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((_FB, soft.shape[0]), jnp.int32),
-                   jax.ShapeDtypeStruct((1, soft.shape[0]), jnp.int32)),
-        scratch_shapes=[scratch],
+    bits_t, metric, _ = pl.pallas_call(
+        functools.partial(_kernel, interpret=interpret),
+        grid=(btot // bf,),
+        in_specs=[pl.BlockSpec((_FB, 2, bf), lambda i: (0, 0, i))],
+        out_specs=(pl.BlockSpec((_FB, bf), lambda i: (0, i)),
+                   pl.BlockSpec((bf,), lambda i: (i,)),
+                   pl.BlockSpec((_FB, 2, bf), lambda i: (0, 0, i))),
+        out_shape=(jax.ShapeDtypeStruct((_FB, btot), jnp.int8),
+                   jax.ShapeDtypeStruct((btot,), jnp.int32),
+                   jax.ShapeDtypeStruct((_FB, 2, btot), jnp.int32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=bf // 32,
+                                             num_stages=1),
         interpret=interpret,
-    )(*operands)
-    return bits_t.T[:bsz], metric[0, :bsz]
+        name="viterbi_acs_traceback",
+    )(tape)
+    return bits_t.T[:bsz].astype(jnp.uint8), metric[:bsz]

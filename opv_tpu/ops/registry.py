@@ -1,10 +1,15 @@
-"""Kernel backend registry: XLA reference implementations vs Pallas kernels.
+"""Kernel backend registry: the XLA scan Viterbi vs the Pallas-Triton kernel.
 
-Default is "auto": the Pallas VMEM Viterbi on TPU (measured faster than the
-XLA scan — see PERF.md), the portable XLA scan everywhere else.  Switch with
-`set_backend(...)` or env OPV_BACKEND={xla,pallas,pallas_interpret,auto}
-before tracing; pipelines read the registry at trace time, so flip it before
-the first jitted call (or clear jax caches).
+Backends (`set_backend(...)` or env OPV_BACKEND, read at trace time — flip
+it before the first jitted call, or clear jax caches):
+  auto              the compiled kernel where one exists for the current
+                    platform (the GPU), the XLA scan elsewhere (the CPU)
+  xla               the XLA scan everywhere
+  pallas            the compiled kernel; an error on a platform without
+                    one (nothing falls back to interpret mode silently)
+  pallas_interpret  the kernel through the Pallas interpreter (tests)
+On an H100 the kernel runs the 1280-frame batch ~30x faster than the scan
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ import os
 
 _backend = os.environ.get("OPV_BACKEND", "auto")
 _VALID = ("auto", "xla", "pallas", "pallas_interpret")
+#: platforms with a compiled Viterbi kernel
+_KERNEL_PLATFORMS = ("gpu",)
 
 
 def set_backend(name: str) -> None:
@@ -24,10 +31,16 @@ def set_backend(name: str) -> None:
 
 def get_backend() -> str:
     """The resolved backend ("auto" resolves per the current jax platform)."""
-    if _backend != "auto":
-        return _backend
     import jax
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+    platform = jax.default_backend()
+    if _backend == "auto":
+        return "pallas" if platform in _KERNEL_PLATFORMS else "xla"
+    if _backend == "pallas" and platform not in _KERNEL_PLATFORMS:
+        raise RuntimeError(
+            f"no compiled Viterbi kernel for platform {platform!r} "
+            f"(have: {', '.join(_KERNEL_PLATFORMS)}); use backend 'xla', "
+            f"or 'pallas_interpret' to run the kernel in the interpreter")
+    return _backend
 
 
 def viterbi_batch(soft):
@@ -36,91 +49,26 @@ def viterbi_batch(soft):
     if backend == "xla":
         # the slimmed scan (symmetric branch metrics + guard-free tail) —
         # decision-identical to viterbi_decode_batch (the oracle, kept for
-        # tests); ~25% faster on CPU where the steady block is
-        # Viterbi-dominated
+        # tests)
         from opv_tpu.rx.viterbi import viterbi_decode_fast_batch
-        bits, metrics = viterbi_decode_fast_batch(soft)
-        return bits, metrics
-    import jax
+        return viterbi_decode_fast_batch(soft)
     from opv_tpu.ops.pallas.viterbi import viterbi_pallas
-    # compiled pallas (Mosaic) only exists on TPU; interpret elsewhere
-    interpret = (backend == "pallas_interpret"
-                 or jax.default_backend() != "tpu")
-    bits, metrics = viterbi_pallas(soft, interpret=interpret)
-    return bits.astype("uint8"), metrics
+    return viterbi_pallas(soft, interpret=backend == "pallas_interpret")
 
 
 def symbol_corr(sym_f, kern_f):
-    """Dispatch the soft-stage window correlation:
-    (C, M, 80) f32 x (C, 80, 8) f32 -> (C, M, 8) f32.
+    """Soft-stage window correlation as one batched einsum:
+    (C, M, 80) x (C, 80, 8) -> (C, M, 8), accumulated in at least float32.
 
-    Default is the XLA einsum everywhere, with f32 accumulation forced
-    (preferred_element_type): on this TPU's flag set
-    (--xla_allow_excess_precision=true) XLA demotes f32 matmul operands to
-    bf16 anyway, so callers that keep their sample buffers in bf16
-    (stream/locked.py on TPU) skip the 890 MB convert-copy pass entirely
-    and halve the stage's HBM read.
-
-    Two measured NEGATIVE results kept as OPV_CORR experiments (PERF.md):
-    * pallas (ops/pallas/correlate.py): 28.7 ms v1 (lane-axis contraction
-      relayouts) / 9.3 ms v2 (in-kernel transposed tiles) vs ~4 ms einsum.
-    * blockdiag: folding g=16 windows into (M/16, 1280) x (1280, 128)
-      rows for exact MXU tiling — the reshape is NOT free under (8,128)
-      tiled layouts (XLA inserts a second full-tensor retile copy) and
-      the 16x block-diagonal zero FLOPs push the dot past the HBM bound:
-      7.35 ms vs 4.21 ms (in-place harness, same session)."""
+    Float operands keep the caller's precision setting; int8 operands run
+    an exact s8 x s8 -> s32 dot (K=80 cannot overflow int32) that the
+    caller rescales to wire-scale float32."""
     import jax.numpy as jnp
-    backend = os.environ.get("OPV_CORR", "xla")
-
-    def einsum(s, k):
-        if jnp.issubdtype(s.dtype, jnp.integer):
-            # int8 buffer path (rx/locked.py): exact s8 x s8 -> s32 dot
-            # (MXU-native on TPU; K=80 cannot overflow int32); the caller
-            # rescales to wire-scale f32
-            return jnp.einsum("cst,cto->cso", s, k,
-                              preferred_element_type=jnp.int32)
-        # accumulate in (at least) f32 — bf16 operands are fine, bf16
-        # accumulation is not; the f64 parity path keeps f64 throughout
-        acc = jnp.promote_types(s.dtype, jnp.float32)
-        return jnp.einsum("cst,cto->cso", s, k.astype(s.dtype),
-                          preferred_element_type=acc)
-    if backend == "blockdiag":
-        # NO pad of the big operand (a pad materializes a full copy — the
-        # exact relayout this path exists to avoid): the g-multiple head
-        # goes through the grouped matmul as a free reshape view, the
-        # ragged tail (< 16 windows) through the plain einsum
-        g = 16
-        c, m, kw = sym_f.shape
-        no = kern_f.shape[-1]
-        mg = (m // g) * g
-        if mg == 0:
-            return einsum(sym_f, kern_f)
-        lhs = sym_f[:, :mg].reshape(c, mg // g, g * kw)
-        eye = jnp.eye(g, dtype=kern_f.dtype)
-        bd = jnp.einsum("gh,cto->cgtho", eye, kern_f) \
-            .reshape(c, g * kw, g * no)
-        out = jnp.einsum("csk,ckn->csn", lhs, bd).reshape(c, mg, no)
-        if mg == m:
-            return out
-        return jnp.concatenate([out, einsum(sym_f[:, mg:], kern_f)], axis=1)
-    use_pallas = backend == "pallas_interpret" or (
-        backend == "pallas" and _on_tpu())
-    if not use_pallas:
-        return einsum(sym_f, kern_f)
-    from opv_tpu.ops.pallas.correlate import TM, symbol_corr_pallas
-    m = sym_f.shape[1]
-    m_main = (m // TM) * TM
-    if m_main == 0:
-        return einsum(sym_f, kern_f)
-    main = symbol_corr_pallas(sym_f[:, :m_main], kern_f,
-                              interpret=(backend == "pallas_interpret"
-                                         or not _on_tpu()))
-    main = jnp.swapaxes(main, 1, 2)      # kernel emits (C, 8, M) rows
-    if m_main == m:
-        return main
-    return jnp.concatenate([main, einsum(sym_f[:, m_main:], kern_f)], axis=1)
-
-
-def _on_tpu() -> bool:
-    import jax
-    return jax.default_backend() == "tpu"
+    if jnp.issubdtype(sym_f.dtype, jnp.integer):
+        return jnp.einsum("cst,cto->cso", sym_f, kern_f,
+                          preferred_element_type=jnp.int32)
+    # bf16 operands are fine, bf16 accumulation is not; the f64 parity
+    # path keeps f64 throughout
+    acc = jnp.promote_types(sym_f.dtype, jnp.float32)
+    return jnp.einsum("cst,cto->cso", sym_f, kern_f.astype(sym_f.dtype),
+                      preferred_element_type=acc)

@@ -8,7 +8,10 @@ The workload's parallel axes (SURVEY.md section 2, parallelism table):
              capture sharded across devices with overlap-save halos (the
              reference's analog: chunked streaming, serialized).
 
-Collectives ride ICI within a slice (`ppermute` halos, `psum` metrics).
+The mesh is a plain reshape of ``jax.devices()``: on a multi-GPU host
+every card reaches every other at the same rate, so the axis order follows
+the algorithm alone.  Collectives (`ppermute` halos, `psum` metrics) go
+to the device links.
 """
 
 from __future__ import annotations

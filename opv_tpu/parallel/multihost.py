@@ -1,8 +1,8 @@
 """Multi-host execution glue.
 
-On a multi-host TPU slice, channel shards ride DCN between hosts while halo
-exchange and psum ride ICI inside each slice (mesh axes ordered so `time` is
-innermost/ICI-contiguous).  This module wraps the standard jax.distributed
+Across hosts, channel shards never communicate while halo exchange and
+psum stay among each host's own devices (mesh axes ordered so `time` is
+innermost and host-local).  This module wraps the standard jax.distributed
 bootstrap and builds the (host, ch, time) mesh; single-host callers get the
 same API with host=1.
 
@@ -32,7 +32,7 @@ def global_mesh(ch: int | None = None, time: int | None = None) -> Mesh:
     """Build a (ch, time) mesh over ALL processes' devices.
 
     Device order groups each host's local devices contiguously along `time`
-    so halo ppermutes stay on ICI; `ch` spans hosts (DCN) where channel
+    so halo ppermutes stay inside a host; `ch` spans hosts, where channel
     shards never communicate.
     """
     devs = jax.devices()

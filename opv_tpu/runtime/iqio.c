@@ -2,7 +2,7 @@
  * _iqio — native sample-I/O runtime for opv_tpu.
  *
  * The reference modem's runtime layer is C++ (stdio stream plumbing,
- * opv-mod.cpp:304-309 / opv-demod.cpp:1022-1026); this is the TPU
+ * opv-mod.cpp:304-309 / opv-demod.cpp:1022-1026); this is the
  * framework's native equivalent: zero-copy int16-interleaved IQ <->
  * complex64/float conversion and a blocking exact-count fd reader, exposed
  * through the CPython C API (no pybind11 dependency).

@@ -3,7 +3,7 @@
  *
  * The reference-parity demodulator is a serial per-symbol feedback loop
  * (AFC + early-late TED, src/opv-demod.cpp:206-329).  The JAX lax.scan
- * formulation (opv_tpu/rx/demod.py) is the batched/TPU implementation; on
+ * formulation (opv_tpu/rx/demod.py) is the batched implementation; on
  * a host CPU its per-step overhead caps one stream at ~1.9 MS/s — below
  * the 2.168 MS/s real-time line the reference's C++ loop clears at
  * 4.77 MS/s.  This module is the framework's native runtime for that one

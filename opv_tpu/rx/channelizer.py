@@ -11,7 +11,7 @@ Pulling the mixer through the filter gives
     y_c[m] = const_phase * sum_t (h[t] e^{j2pi c t/K}) x[mK + d - t]
 
 i.e. a stride-K convolution of the wideband stream with K modulated copies
-of the prototype — ONE grouped strided conv (MXU work), no gathers, no FFT
+of the prototype — ONE grouped strided conv (matmul work), no gathers, no FFT
 bookkeeping, and constant per-channel phase (irrelevant to the non-coherent
 OPV demod).  Cost is N*taps*2 MACs per channel — trivial next to the demod.
 """
@@ -116,27 +116,26 @@ def channelize(x: jnp.ndarray, k: int, taps_per_branch: int = 12) -> jnp.ndarray
     to negative frequencies) with a constant group delay of
     (K*taps_per_branch-1)/K output samples.
 
-    Formulated as the POLYPHASE decomposition mapped to TPU primitives:
+    Formulated as the POLYPHASE decomposition mapped to array primitives:
     the stride-K modulated filterbank splits (t = pK + q) into
 
         y_c[m] = sum_r W[c,r] * u[m,r]
 
     with u the filtered polyphase legs (polyphase_legs) and W the DFT
-    matrix (dft_kernel) — one (M, 2K) x (2K, 2K) real matmul on the MXU
-    (complex via interleaved re/im kernel rows, as rx/locked.py's soft
-    stage).  The previous formulation — a stride-K `conv_general_dilated`
-    with a K*taps-long kernel — lowered ~200x off the HBM roofline on this
-    TPU (22.7 ms/frame-quantum at K=64 vs ~0.8 ms here); that conv path
-    survives only in git history.  Numerically this reorders the same MACs
-    (ulp-level differences; frame decodes and the channel-power tests are
-    unaffected).
+    matrix (dft_kernel) — one (M, 2K) x (2K, 2K) real matmul (complex via
+    interleaved re/im kernel rows, as rx/locked.py's soft stage).  The
+    previous formulation — a stride-K `conv_general_dilated` with a
+    K*taps-long kernel — lowered far off the memory roofline on the first
+    accelerator; that conv path survives only in git history.  Numerically
+    this reorders the same MACs (ulp-level differences; frame decodes and
+    the channel-power tests are unaffected).
     """
     real_dt = x.real.dtype
     kern = jnp.asarray(dft_kernel(k), real_dt)
     return channelize_cols(x, kern, k, taps_per_branch)
 
 
-def msk_wideband(frames_u8: np.ndarray, k: int) -> np.ndarray:
+def msk_wideband(frames_u8: np.ndarray, k: int) -> jnp.ndarray:
     """Simulation helper: the OPV MSK waveform synthesized directly AT the
     wideband rate (K x 2.168 MSPS) — identical math to tx/modulator.py's
     fast path with phase increments scaled 1/K (period 160K samples,
@@ -145,26 +144,32 @@ def msk_wideband(frames_u8: np.ndarray, k: int) -> np.ndarray:
     True-narrowband by construction (no ZOH upsampling images), so
     `synthesize_wideband` placements built from it leave quiet channels
     genuinely quiet — the single source for the channelizer tests, the
-    multihost wideband worker, and the dryrun (was triplicated)."""
-    import jax.numpy as jnp
-
+    multihost wideband worker, the dryrun and chip_smoke.py.  Computed on
+    the device: a jax array, complex128 when x64 is on, else complex64."""
     from opv_tpu.core import encode_frame
     from opv_tpu.core.framing import frame_to_symbol_bits
     from opv_tpu.tx.modulator import mod_reset, symbol_signs
 
-    from opv_tpu.config import CONFIG
     enc = encode_frame(jnp.asarray(frames_u8))
-    bits = np.asarray(frame_to_symbol_bits(enc)).reshape(-1)
+    bits = frame_to_symbol_bits(enc).reshape(-1)
     st = mod_reset()
-    d1, d2, _, _ = symbol_signs(jnp.asarray(bits), st.t_xor, st.b_n)
+    d1, d2, _, _ = symbol_signs(bits, st.t_xor, st.b_n)
+    return _msk_wave(d1, d2, k)
+
+
+@functools.partial(jax.jit, static_argnames=("k",))
+def _msk_wave(d1, d2, k: int):
+    from opv_tpu.config import CONFIG
+    fdt = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     sps = CONFIG.samples_per_symbol * k
     period = 160 * k
-    ph = 2 * np.pi * (np.arange(len(bits) * sps) % period) / period
-    a1 = np.repeat(np.asarray(d1, np.float64), sps)
-    a2 = np.repeat(np.asarray(d2, np.float64), sps)
-    sig = ((a2 - a1) * np.sin(ph) + 1j * (a2 + a1) * np.cos(ph)) \
+    idx = jnp.arange(d1.shape[0] * sps) % period
+    ph = (2 * np.pi) * idx.astype(fdt) / period
+    a1 = jnp.repeat(d1.astype(fdt), sps)
+    a2 = jnp.repeat(d2.astype(fdt), sps)
+    sig = jax.lax.complex((a2 - a1) * jnp.sin(ph), (a2 + a1) * jnp.cos(ph)) \
         * CONFIG.iq_amplitude
-    return np.concatenate([sig, np.zeros(100 * sps, np.complex128)])
+    return jnp.concatenate([sig, jnp.zeros(100 * sps, sig.dtype)])
 
 
 def wideband_test_channels(k: int) -> list:
@@ -175,15 +180,26 @@ def wideband_test_channels(k: int) -> list:
     return idx[: min(2, k)]
 
 
-def synthesize_wideband(channel_signals: dict, k: int, n: int) -> np.ndarray:
+def synthesize_wideband(channel_signals: dict, k: int, n: int) -> jnp.ndarray:
     """Simulation helper: place signals (already sampled at the WIDEBAND
     rate) on the channelizer grid by direct frequency shift and summation.
+    The mixer phase (c * t mod K) / K is exact; the sum is built on the
+    device (complex128 when x64 is on, else complex64).
 
     channel_signals: {channel_index c: (<=N,) complex wideband-rate signal}.
     """
-    out = np.zeros(n, np.complex128)
-    t = np.arange(n)
+    cdt = jnp.complex128 if jax.config.jax_enable_x64 else jnp.complex64
+    out = jnp.zeros(n, cdt)
     for c, s in channel_signals.items():
-        m = min(len(s), n)
-        out[:m] += np.asarray(s[:m]) * np.exp(2j * np.pi * c * t[:m] / k)
+        s = jnp.asarray(s, cdt)[:n]
+        out = _place(out, s, jnp.int32(c), k)
     return out
+
+
+@functools.partial(jax.jit, static_argnames=("k",), donate_argnums=(0,))
+def _place(out, s, c, k: int):
+    m = s.shape[0]
+    t = jnp.arange(m, dtype=jnp.int32)
+    ph = (2 * np.pi / k) * ((c * (t % k)) % k).astype(out.real.dtype)
+    mixed = s * jax.lax.complex(jnp.cos(ph), jnp.sin(ph))
+    return out.at[:m].add(mixed)

@@ -2,7 +2,7 @@
 as a lax.scan with a small carry.
 
 Replicates src/opv-demod.cpp:108-348 operation-for-operation (in float64 on
-CPU for reference fidelity; float32 on TPU for speed):
+CPU for reference fidelity; float32 on an accelerator for speed):
 
 per symbol: integrate-and-dump correlation of linearly-interpolated on-time /
 early / late sample streams (EL spacing = 10 samples) against both tone LOs;
@@ -12,10 +12,10 @@ inter-symbol phase of the dominant tone (alpha=0.001 default, clamp +-2000 Hz,
 skipped for the first symbol of each call); fractional position `mu` and
 leftover samples carried across streaming chunks.
 
-TPU shape: the sequential part is only the ~12-word loop carry; each scan step
-is vector work (a 64-sample dynamic slice + 6 length-40 complex dots), and the
-whole scan vmaps over a channel axis so N channels run in lockstep — the VPU
-sees (N, 40) blocks.  A fixed trip count with an `active` mask makes the
+Array shape: the sequential part is only the ~12-word loop carry; each scan
+step is vector work (a 64-sample dynamic slice + 6 length-40 complex
+dots), and the whole scan vmaps over a channel axis so N channels run in
+lockstep on (N, 40) blocks.  A fixed trip count with an `active` mask makes the
 data-dependent symbol count jit-static (SURVEY.md section 7 "hard parts").
 """
 

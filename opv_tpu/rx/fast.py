@@ -1,22 +1,20 @@
 """Feed-forward multichannel RX pipeline (exploratory / full-backend path).
 
-NOTE: this path uses vmapped dynamic slices and nonzero+gather patterns that
-some restricted TPU runtimes cannot lower (see CLAUDE.md); rx/locked.py is
-the gather-free production path for those targets.  On CPU/GPU/full-featured
-TPU stacks this is the most general pipeline (arbitrary frame positions and
-per-burst detection).
+NOTE: this path uses vmapped dynamic slices and nonzero+gather patterns;
+rx/locked.py is the gather-free production path.  This is the most general
+pipeline (arbitrary frame positions and per-burst detection).
 
 The reference demodulates one channel with per-symbol feedback loops (AFC +
 early-late TED), which is sample-serial by construction.  This module is the
-TPU-first redesign for the production use case (many concurrent channels from
+array-first redesign for the production use case (many concurrent channels from
 locked-clock SDR front-ends; the tracking-loop path in rx/demod.py remains
 the reference-parity / drifting-clock fallback):
 
 * **Dense correlator bank as one matmul**: the integrate-and-dump
   correlation of both tone LOs at EVERY sample offset, phase-decomposed
   onto the 40-sample symbol grid so the whole bank is a single
-  (C, M, 80) x (C, 80, 320) real matmul (windows read once, MXU-friendly
-  tiles) — this subsumes symbol-timing search entirely; there is no
+  (C, M, 80) x (C, 80, 320) real matmul (windows read once) — this
+  subsumes symbol-timing search entirely; there is no
   timing loop and no separate phase estimator.
 
 * **Dilated sync correlation**: the 24-symbol sync pattern is correlated
@@ -78,11 +76,9 @@ def dense_soft(samples: jnp.ndarray, freq_offset: jnp.ndarray,
 
     A_r/B_r masking the shared tone vectors at t >= r / t < r, and the
     leading phase dropping inside |.|^2.  The windows tensor (C, M, 80) is
-    a free reshape read ONCE by a (C, 80, 320)-kernel matmul — K=80, N=320
-    tiles the MXU well.  The previous per-channel vmapped 2-feature NCH
-    conv forced XLA-TPU into (8,128)-padded layouts on the size-2 feature
-    axis: a 64ch x 434k-sample re-acquire block allocated 13.26 GB of
-    padding (64x expansion) and failed to compile at all on a 16 GB chip.
+    a free reshape read ONCE by a (C, 80, 320)-kernel matmul.  (A
+    per-channel vmapped 2-feature conv, the earlier form, padded its
+    size-2 feature axis 64x on the first accelerator.)
     """
     c, n = samples.shape
     real_dt = (jnp.float64 if samples.dtype == jnp.complex128

@@ -3,7 +3,7 @@ LOCKED flywheel state machine.
 
 The reference (src/opv-demod.cpp:587-787) interleaves a per-symbol ring-buffer
 correlation with the state machine and copies payload symbols into a pending
-buffer.  TPU redesign (SURVEY.md section 7.3):
+buffer.  Array redesign (SURVEY.md section 7.3):
 
 * The sync correlation for EVERY symbol position is precomputed in parallel
   (windowed dot with the +-1 sync pattern — a tiny matmul / shifted-slice sum),

@@ -6,10 +6,12 @@ decision: same branch metrics bm = (expected ? 7-s : s), same INT_MAX guard
 for unreachable initial states, ties broken toward parent p0 (m0 <= m1), best
 end state = first minimum, full 1072-step traceback.
 
-TPU shape: the add-compare-select runs as a 64-lane vector op inside a
+Array shape: the add-compare-select runs as a 64-state vector op inside a
 lax.scan over the 1072 trellis steps; a batch axis over frames (vmap) turns
-each step into (B, 64) VPU work.  Decisions are carried as a (1072, 64) bool
-tensor and traced back with a reverse scan of per-step one-hot gathers.
+each step into (B, 64) elementwise work.  Decisions are carried as a
+(1072, 64) bool tensor and traced back with a reverse scan of per-step
+one-hot selects.  The GPU runs the Pallas-Triton kernel instead
+(ops/pallas/viterbi.py); these scans are its oracle and the CPU path.
 """
 
 from __future__ import annotations
@@ -80,8 +82,8 @@ def viterbi_decode(soft: jnp.ndarray):
 
     def traceback(s, dec_t):
         bit = (s & 1).astype(jnp.uint8)
-        # one-hot select instead of a dynamic scalar gather: batched gathers
-        # don't lower on all TPU backends, a 64-lane masked reduce always does
+        # one-hot select instead of a dynamic scalar gather (a 64-lane
+        # masked reduce under vmap)
         took_p1 = jnp.any((states == s) & dec_t)
         s_next = jnp.where(took_p1, (s >> 1) + CONFIG.num_states // 2, s >> 1)
         return s_next, bit
@@ -101,10 +103,9 @@ def viterbi_decode_fast(soft: jnp.ndarray):
     and the INT_MAX reachability guard only matters for the first 8 steps
     (every state is structurally reachable after step 6) — an unrolled
     guarded prologue lets the 1064-step scan body drop two compare+selects
-    per step.  Same slimmings as the Pallas kernel's radix-2 form
-    (ops/pallas/viterbi.py); this is what the registry's XLA backend runs
-    (CPU fallback: the steady block there is Viterbi-dominated).
-    viterbi_decode stays untouched as the oracle.
+    per step.  This is what the registry's XLA backend runs (the CPU path:
+    the steady block there is Viterbi-dominated).  viterbi_decode stays
+    untouched as the oracle.
 
     soft: (2144,) int32 quantized soft symbols.
     Returns (bits (1072,) uint8, path metric int32).
@@ -158,109 +159,3 @@ def viterbi_decode_fast(soft: jnp.ndarray):
 
 
 viterbi_decode_fast_batch = jax.vmap(viterbi_decode_fast)
-
-
-@functools.lru_cache(maxsize=None)
-def _tables_r4():
-    """Radix-4 tables: expected-bit vectors indexed by the FINAL state s of
-    a fused double-step, plus the four grandparent index vectors
-    g = (s>>2) + 16*bp + 32*bg (see ops/pallas/viterbi.py radix-4 notes)."""
-    _, _, e1_0, e2_0, _, _ = _tables()
-    s = np.arange(CONFIG.num_states)
-    pa, pb = s >> 1, (s >> 1) + CONFIG.num_states // 2
-    gidx = [((s >> 2) + 16 * bp + 32 * bg).astype(np.int32)
-            for bg in (0, 1) for bp in (0, 1)]       # order: (bg, bp)
-    return (e1_0, e2_0, e1_0[pa], e2_0[pa], e1_0[pb], e2_0[pb], tuple(gidx))
-
-
-def viterbi_decode_r4(soft: jnp.ndarray):
-    """Radix-4 XLA-scan Viterbi: decision-identical to viterbi_decode with
-    two trellis steps fused per scan iteration (536 instead of 1072) — the
-    same fusion as the Pallas kernel (ops/pallas/viterbi.py
-    _viterbi_kernel_r4) in plain-XLA gather form.  Candidate priority (bg
-    within bp, then bp, ties toward 0) reproduces the sequential tie rules
-    exactly.
-
-    Role: the independent ORACLE for the radix-4 kernel's fusion math
-    (test_rx cross-checks it against viterbi_decode; test_pallas validates
-    the kernel against both formulations).  NOT used by the registry:
-    measured SLOWER than the radix-2 scan on CPU (116 vs 69 ms / 160
-    frames — scan overhead is small there, so the 4 gathers and extra adds
-    per fused step dominate); the fusion only pays on TPU, inside the
-    Pallas kernel, where the serial per-iteration cost rules.
-
-    soft: (2144,) int32 quantized soft symbols.
-    Returns (bits (1072,) uint8, path metric int32).
-    """
-    E1b, E2b, E1a0, E2a0, E1a1, E2a1, gidx = (
-        jnp.asarray(t) if not isinstance(t, tuple) else t
-        for t in _tables_r4())
-    g00, g10, g01, g11 = (jnp.asarray(g) for g in gidx)
-    soft_max = jnp.int32(CONFIG.soft_max)
-    sg = soft.astype(jnp.int32).reshape(CONFIG.frame_bits // 2, 4)
-
-    def acs2(metrics, sg_row, guarded):
-        a2 = jnp.where(E1b == 1, soft_max - sg_row[2], sg_row[2])
-        b2 = jnp.where(E2b == 1, soft_max - sg_row[3], sg_row[3])
-        bmB0 = a2 + b2
-        bmB1 = a2 - b2 + soft_max
-        a10 = jnp.where(E1a0 == 1, soft_max - sg_row[0], sg_row[0])
-        b10 = jnp.where(E2a0 == 1, soft_max - sg_row[1], sg_row[1])
-        a11 = jnp.where(E1a1 == 1, soft_max - sg_row[0], sg_row[0])
-        b11 = jnp.where(E2a1 == 1, soft_max - sg_row[1], sg_row[1])
-        c00 = bmB0 + a10 + b10
-        c01 = bmB0 + a10 - b10 + soft_max
-        c10 = bmB1 + a11 + b11
-        c11 = bmB1 + a11 - b11 + soft_max
-        m00, m01 = metrics[g00], metrics[g01]
-        m10, m11 = metrics[g10], metrics[g11]
-        if guarded:
-            c00 = jnp.where(m00 < _GUARD, m00 + c00, _INF)
-            c01 = jnp.where(m01 < _GUARD, m01 + c01, _INF)
-            c10 = jnp.where(m10 < _GUARD, m10 + c10, _INF)
-            c11 = jnp.where(m11 < _GUARD, m11 + c11, _INF)
-        else:
-            c00, c01 = m00 + c00, m01 + c01
-            c10, c11 = m10 + c10, m11 + c11
-        dga = (c01 < c00).astype(jnp.int32)          # bg within bp=0
-        va = jnp.minimum(c00, c01)
-        dgb = (c11 < c10).astype(jnp.int32)          # bg within bp=1
-        vb = jnp.minimum(c10, c11)
-        bp = (vb < va).astype(jnp.int32)             # ties -> bp=0
-        bg = jnp.where(bp == 1, dgb, dga)
-        return jnp.minimum(va, vb), bp, bg
-
-    metrics = jnp.full(CONFIG.num_states, _INF, jnp.int32).at[0].set(0)
-    head = []
-    for d in range(4):                               # 8 guarded steps
-        metrics, bp, bg = acs2(metrics, sg[d], True)
-        head.append(jnp.stack([bp, bg]))
-
-    def step(metrics, sg_row):
-        metrics, bp, bg = acs2(metrics, sg_row, False)
-        return metrics, jnp.stack([bp, bg])
-
-    metrics, tail = jax.lax.scan(step, metrics, sg[4:])
-    dec = jnp.concatenate([jnp.stack(head), tail])   # (536, 2, 64)
-
-    best = jnp.argmin(metrics).astype(jnp.int32)
-    states = jnp.arange(CONFIG.num_states, dtype=jnp.int32)
-
-    zero = jnp.int32(0)
-
-    def traceback(s, dec_d):
-        bit_hi = (s & 1).astype(jnp.uint8)           # step 2d+1
-        bp = jnp.sum(jnp.where(states == s, dec_d[0], zero))
-        p = (s >> 1) + bp * (CONFIG.num_states // 2)
-        bit_lo = (p & 1).astype(jnp.uint8)           # step 2d
-        bg = jnp.sum(jnp.where(states == s, dec_d[1], zero))
-        return (((p >> 1) + bg * (CONFIG.num_states // 2))
-                .astype(jnp.int32),
-                jnp.stack([bit_lo, bit_hi]))
-
-    _, bits2 = jax.lax.scan(traceback, best, dec, reverse=True)
-    best_metric = jnp.sum(jnp.where(states == best, metrics, 0))
-    return bits2.reshape(-1), best_metric
-
-
-viterbi_decode_r4_batch = jax.vmap(viterbi_decode_r4)

@@ -6,7 +6,7 @@ chunk is processed; unconsumed tail samples (timing-recovery continuity) stay
 at the head of the next chunk; the first chunk triggers the coarse CFO
 estimate; a final partial chunk is flushed at EOF.
 
-TPU shape: the per-chunk compute is ONE jit-compiled program of fixed static
+Array shape: the per-chunk compute is ONE jit-compiled program of fixed static
 shapes (capacity-padded buffer + valid count), compiled once and reused for
 every chunk including the final partial one.  All carries live in a
 serializable pytree (see stream/state.py).
@@ -40,7 +40,7 @@ class StreamingDemodulator:
         backend: "auto" | "jax" | "native".  The serial AFC/TED symbol-
         tracking loop is the one part of this pipeline a host CPU runs
         faster as native code than as a lax.scan (~20 MS/s vs ~1.9; the
-        reference C++ does 4.77, BASELINE.md) — "native" routes it through
+        reference C++ does 4.77) — "native" routes it through
         the _tracking C runtime (opv_tpu/runtime/tracking.c) and keeps the
         batched sync/Viterbi/finishing stages in JAX
         (rx/pipeline.py::rx_block_from_soft).  "auto" picks native when the

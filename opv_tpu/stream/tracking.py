@@ -15,8 +15,8 @@ without deadlock or data loss via early short chunks (see feed()), at the
 cost of exact chunk-boundary parity for the lagging channels.
 
 NOTE: this path vmaps the tracking scans (batched dynamic slices inside) —
-run it on CPU or full-featured backends; restricted TPU runtimes that cannot
-lower batched gathers should use stream/multichannel.py + rx/locked.py.
+backends that cannot lower batched gathers should use
+stream/multichannel.py + rx/locked.py.
 """
 
 from __future__ import annotations

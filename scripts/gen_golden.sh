@@ -103,7 +103,7 @@ EOF
 
 # 8. FEC-waterfall captures: 12 BERT frames at Eb/N0 = 7 dB and 8 dB
 #    (seeded), + the reference's decode of each — the knee where the
-#    reference measures ~2.3e-2 post-FEC BER (BASELINE.md row 6).  These
+#    reference measures ~2.3e-2 post-FEC BER.  These
 #    pin frame-for-frame parity at the waterfall, not just at 10 dB.
 "$BUILD/bin/opv-mod" -S W5NYV -B 12 > "$BUILD/bert12.iq" 2>/dev/null
 for DB in 7 8; do

@@ -8,6 +8,10 @@
 # deployment (2.168 MSPS, one 40 ms frame per buffer).
 #
 # Functional equivalent of the reference's scripts/opv-pluto.sh (C22).
+#
+# One process per card: a JAX process that opens the GPU reserves most of
+# its memory, so only the RX modem may take it (--rx-device gpu); the TX
+# modem always runs on the CPU.
 
 set -euo pipefail
 
@@ -24,6 +28,7 @@ TX_PORT=57372
 RX_PORT=57373
 VERBOSE=""
 OPV_MODEM="${OPV_MODEM:-python3 -m opv_tpu.cli.opv_modem}"
+RX_DEVICE="${RX_DEVICE:-cpu}"
 
 usage() {
     cat <<EOF
@@ -36,6 +41,8 @@ Usage: $(basename "$0") [OPTIONS]
   -u, --uri URI         PlutoSDR URI (default $PLUTO_URI)
   --tx-port PORT        UDP port from Interlocutor (default $TX_PORT)
   --rx-port PORT        UDP port to Interlocutor (default $RX_PORT)
+  --rx-device DEV       RX modem's jax platform: cpu or gpu (default
+                        $RX_DEVICE; the TX modem stays on the CPU)
   -v, --verbose         verbose
   -h, --help            this help
 EOF
@@ -52,6 +59,7 @@ while [[ $# -gt 0 ]]; do
         -u|--uri) PLUTO_URI="$2"; shift 2 ;;
         --tx-port) TX_PORT="$2"; shift 2 ;;
         --rx-port) RX_PORT="$2"; shift 2 ;;
+        --rx-device) RX_DEVICE="$2"; shift 2 ;;
         -v|--verbose) VERBOSE="-v"; shift ;;
         -h|--help) usage ;;
         *) echo "Unknown option: $1" >&2; usage 1 ;;
@@ -87,14 +95,14 @@ iio_attr -u "$PLUTO_URI" -c cf-ad9361-dds-core-lpc altvoltage0 raw 0 >/dev/null 
 # ---- TX path: UDP -> modem -> FIFO -> radio ----
 TX_FIFO=$(mktemp -u /tmp/opv-tx-XXXX.fifo)
 mkfifo "$TX_FIFO"
-$OPV_MODEM -t -p "$TX_PORT" $VERBOSE > "$TX_FIFO" &
+$OPV_MODEM -t -p "$TX_PORT" --device cpu $VERBOSE > "$TX_FIFO" &
 TX_PID=$!
 iio_writedev -u "$PLUTO_URI" -b "$BUFFER_SIZE" cf-ad9361-dds-core-lpc < "$TX_FIFO" &
 IIO_TX_PID=$!
 
 # ---- RX path: radio -> modem -> UDP ----
 iio_readdev -u "$PLUTO_URI" -b "$BUFFER_SIZE" cf-ad9361-lpc voltage0 voltage1 | \
-    $OPV_MODEM -R -r "$RX_PORT" $VERBOSE &
+    $OPV_MODEM -R -r "$RX_PORT" --device "$RX_DEVICE" $VERBOSE &
 RX_PID=$!
 
 echo "OPV transceiver running: Interlocutor TX->udp:$TX_PORT, RX<-udp:$RX_PORT (Ctrl-C to stop)" >&2

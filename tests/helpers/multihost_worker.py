@@ -6,7 +6,7 @@ Run as: python multihost_worker.py <process_id> <num_processes> <port> \
 Each process owns `local_devices` virtual CPU devices; jax.distributed
 stitches them into one (num_processes * local_devices)-device runtime.
 global_mesh builds the (ch, time) mesh with each host's local devices
-contiguous along `time` (ICI-analog) and `ch` spanning hosts (DCN-analog),
+contiguous along `time` (host-local) and `ch` spanning hosts,
 then rx_grid_sharded runs the full halo-exchange + psum pipeline across
 the process boundary — the reference's "multi-node" analog is localhost
 UDP/pipes (SURVEY.md section 4); ours is an actual jax.distributed

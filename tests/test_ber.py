@@ -1,9 +1,9 @@
-"""AWGN BER regression (BASELINE.md:23): the production locked path must
-match or beat the reference's measured waterfall — ~2.3e-2 post-FEC BER at
-7 dB Eb/N0, error-free at 10 dB (Eb/N0 := per-sample SNR x 40 sps).
+"""AWGN BER regression: the production locked path must match or beat the
+reference binary's measured waterfall — ~2.3e-2 post-FEC BER at 7 dB
+Eb/N0, error-free at 10 dB (Eb/N0 := per-sample SNR x 40 sps).
 
-Deterministic (fixed seed); the committed sweep artifact is BER_r02.json
-(tools/ber_curve.py)."""
+Deterministic (fixed seed); tools/ber_curve.py and tools/ber_headtohead.py
+run the full sweeps."""
 
 import numpy as np
 import pytest
@@ -50,7 +50,7 @@ class TestAwgnWaterfall:
         noisy = s + (rng.standard_normal(len(s))
                      + 1j * rng.standard_normal(len(s))) * np.sqrt(npow / 2)
         ber = _ber(_run_locked(noisy, n_frames), frames)
-        # reference measured ~2.3e-2 at 7 dB (BASELINE.md:23); the envelope
+        # the reference binary measured ~2.3e-2 at 7 dB; the envelope
         # allows seed variance but a regression past 1.3x the reference
         # waterline now fails (VERDICT r2 weak #4 tightening; acquisition
         # regressions score ~0.25)
@@ -64,8 +64,8 @@ class TestAwgnWaterfall:
         noisy = s + (rng.standard_normal(len(s))
                      + 1j * rng.standard_normal(len(s))) * np.sqrt(npow / 2)
         ber = _ber(_run_locked(noisy, n_frames), frames)
-        # the reference's headline is "0 residual errors at 10 dB"
-        # (BASELINE.md:23) but per-seed variance at the waterfall knee is a
+        # the reference's headline is "0 residual errors at 10 dB" but
+        # per-seed variance at the waterfall knee is a
         # few bits per 20 frames (this seed: 3/21440 post-FEC); bound it
         # well below the 7 dB waterline instead of pinning an exact zero
         assert ber <= 1e-3, f"10 dB BER {ber:.3e}, reference is ~error-free"

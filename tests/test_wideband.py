@@ -89,7 +89,7 @@ class TestWidebandReceiver:
         # block-advance quantum (quantum_out = block_frames frames/channel,
         # tools/wideband_bench.py --quantum-frames): ONE ingest + ONE inner
         # append + ONE AGC accumulate per block instead of block_frames of
-        # each — the dispatch-count lever for tunnel-RTT-bound deployments.
+        # each — the dispatch-count lever when dispatches are expensive.
         # Must emit the identical tuple stream.
         from opv_tpu.config import CONFIG
 
@@ -110,10 +110,10 @@ class TestWidebandReceiver:
         frm = run_q(quantum_out=CONFIG.samples_per_frame)
         assert frm == fast
 
-        # same equivalence through the int8+AGC engine (the TPU production
-        # dtype): the fused kernel carries the AGC stat accumulation, so
-        # block-quantum (fused ingest, one dispatch) and frame-quantum
-        # (general loop) must still emit identical tuples — incl. pipelined
+        # same equivalence through the int8+AGC engine: the fused kernel
+        # carries the AGC stat accumulation, so block-quantum (fused
+        # ingest, one dispatch) and frame-quantum (general loop) must still
+        # emit identical tuples — incl. pipelined
         i8_frame = run_q(dtype="int8",
                          quantum_out=CONFIG.samples_per_frame)
         i8_blk = run_q(dtype="int8")

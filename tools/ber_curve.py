@@ -3,7 +3,7 @@
 
 Generates BERT frames, passes them through an AWGN channel at a range of
 Eb/N0 points (Eb/N0 := per-sample SNR x 40 samples/symbol, the convention
-used for the reference baseline in BASELINE.md), demodulates with the
+used for the reference's own BER measurements), demodulates with the
 feed-forward pipeline, and reports post-FEC BER and frame error rate.
 
 Usage:
@@ -25,8 +25,9 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--json", default=None)
-    ap.add_argument("--device", default=None,
-                    help="jax platform override (default: auto)")
+    ap.add_argument("--device", default="cpu",
+                    help="jax platform: cpu (default) or gpu; the run fails "
+                         "if the platform has no device")
     ap.add_argument("--path", choices=["locked", "tracking", "locked-int8",
                                        "locked-int8-agc"],
                     default="locked",
@@ -40,11 +41,8 @@ def main() -> int:
                          "_agc_update) — the production int8 behavior")
     args = ap.parse_args()
 
-    import jax
-    if args.device:
-        jax.config.update("jax_platforms", args.device)
-    if args.path == "tracking":
-        jax.config.update("jax_enable_x64", True)
+    from opv_tpu.cli._platform import setup_platform
+    setup_platform(args.device, x64=args.path == "tracking")
     import jax.numpy as jnp
     import numpy as np
 

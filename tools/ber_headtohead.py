@@ -10,15 +10,15 @@ capture with:
   * the reference-parity tracking path (StreamingDemodulator, float64,
     native C loop when built),
   * the production locked-grid path (rx_locked, float32),
-  * the locked path on the int8 AGC stream buffer (the TPU default).
+  * the locked path on the int8 AGC stream buffer.
 
 BER counts bit errors at the best single global frame alignment (losses at
 the head of a capture are acquisition differences; both sides pay for
 frames they miss).  FER counts frames with any residual error.  Emits one
-JSON object; this is the BER_rN artifact generator (VERDICT r2 item 3).
+JSON object (VERDICT r2 item 3).
 
 Usage: python tools/ber_headtohead.py [--ebn0 7 8 10] [--frames 200]
-           [--json BER_r03.json] [--ref /root/reference]
+           [--json OUT.json] [--ref REFERENCE_CHECKOUT]
 """
 
 import argparse
@@ -206,7 +206,7 @@ def main() -> int:
                          "decoded": int(fv.sum()),
                          "wall_s": round(time.time() - t0, 2)}
 
-        # int8 AGC buffer (the TPU streaming default), mirrored exactly:
+        # int8 AGC buffer, mirrored exactly:
         # acquisition on complex reconstructed from the quantized buffer,
         # steady body on the int8 window rows at the AGC step
         pairs = np.stack([sw.real, sw.imag], -1)[: len(sw) // 40 * 40]

@@ -4,7 +4,7 @@ rx/locked.py (_PB_BIAS).
 
 The dense sync correlation of a clean OPV capture has a deterministic
 shape around its apex: a 2-sample plateau with an ASYMMETRIC skirt (sharp
-rise on the left, slow decay on the right — see PERF.md round 4).  The
+rise on the left, slow decay on the right).  The
 asymmetry pulls the [1,1]-smoothed 3-point parabola LATE by a fixed
 ~+0.44 samples even on a noise-free fold; _fold_est subtracts this
 clean-fold-measured bias.  The constant is data-derived but fixed by the

@@ -19,12 +19,15 @@ subprocess) as a black box over the real UDP socket interface:
                one serving channel can run.  Equivalent Msamples/s is
                fps * 86,720 (samples per frame).
 
-Usage: python tools/modem_bench.py [--fast] [--frames N] [--json OUT]
+Usage: python tools/modem_bench.py [--fast] [--device cpu|gpu]
+                                   [--frames N] [--json OUT]
 
 Writes one JSON document (default stdout; details on stderr).  Run once
 per engine (or --both): default is the reference-parity float64 tracking
 loop, --fast the feed-forward locked-grid engine (stream/locked.py) that
 opv-modem wires in under its --fast flag — the production serving path.
+--device is handed to the server; this process never imports JAX, so a
+server on the GPU has the card to itself.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME_BYTES = 134
 FRAME_SECONDS = 0.040
 SAMPLES_PER_FRAME = 86_720
+W5NYV_BASE40 = bytes([0, 0, 3, 116, 38, 151])   # base40_encode("W5NYV")
 
 
 def log(*a):
@@ -48,11 +52,8 @@ def log(*a):
 
 
 def _build_frame(seq: int) -> bytes:
-    sys.path.insert(0, REPO)
-    from opv_tpu.core.base40 import base40_encode
-
     frame = bytearray(FRAME_BYTES)
-    frame[:6] = base40_encode("W5NYV")
+    frame[:6] = W5NYV_BASE40
     frame[6:9] = (0xBBAADD).to_bytes(3, "big")
     frame[12:16] = seq.to_bytes(4, "big")
     for i in range(16, FRAME_BYTES):
@@ -65,9 +66,9 @@ def _seq_of(frame: bytes) -> int:
 
 
 class LoopbackServer:
-    def __init__(self, port: int, fast: bool):
+    def __init__(self, port: int, fast: bool, device: str = "cpu"):
         cmd = [sys.executable, "-m", "opv_tpu.cli.opv_modem", "-l",
-               "-p", str(port)]
+               "-p", str(port), "--device", device]
         if fast:
             cmd.append("--fast")
         env = dict(os.environ, PYTHONPATH=REPO)
@@ -94,8 +95,9 @@ class LoopbackServer:
             self.proc.wait()
 
 
-def bench(fast: bool, n_cadence: int, n_burst: int, port: int) -> dict:
-    srv = LoopbackServer(port, fast)
+def bench(fast: bool, n_cadence: int, n_burst: int, port: int,
+          device: str = "cpu") -> dict:
+    srv = LoopbackServer(port, fast, device)
     try:
         t_start = time.time()
         if not srv.wait_ready():
@@ -220,6 +222,7 @@ def bench(fast: bool, n_cadence: int, n_burst: int, port: int) -> dict:
         sock.close()
         return {
             "engine": "fast" if fast else "exact",
+            "device": device,
             "cold_start_s": round(cold, 2),
             "cadence_ms": {"p50": round(pct(50), 1), "p95": round(pct(95), 1),
                            "p99": round(pct(99), 1), "n": n_cadence},
@@ -238,13 +241,16 @@ def main():
     ap.add_argument("--frames", type=int, default=50)
     ap.add_argument("--burst", type=int, default=40)
     ap.add_argument("--port", type=int, default=57631)
+    ap.add_argument("--device", default="cpu",
+                    help="the server's jax platform: cpu or gpu")
     ap.add_argument("--json", default="")
     args = ap.parse_args()
 
     runs = []
     engines = [False, True] if args.both else [args.fast]
     for fast in engines:
-        runs.append(bench(fast, args.frames, args.burst, args.port + fast))
+        runs.append(bench(fast, args.frames, args.burst, args.port + fast,
+                          args.device))
     doc = {"bench": "modem_loopback_serving", "runs": runs}
     out = json.dumps(doc, indent=1)
     if args.json:

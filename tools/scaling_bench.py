@@ -9,8 +9,8 @@ efficiency vs the 1-device run.
 NOTE: on a virtual CPU mesh (xla_force_host_platform_device_count) all
 "devices" share the same physical cores, so wall-clock efficiency there
 measures sharding OVERHEAD only (expect ~1/N "efficiency"); meaningful
-scaling numbers require a real multi-chip slice.  The tool runs on whatever
-mesh is available and labels the result accordingly.
+scaling numbers require real devices (e.g. four GPUs on one host).  The
+tool runs on whatever mesh is available and labels the result accordingly.
 
 Usage: python tools/scaling_bench.py [--devices 1 2 4 8] [--frames-per-dev 4]
 """
@@ -37,8 +37,8 @@ def halo_sweep(ntime: int, fractions, json_path=None) -> int:
 
     On a virtual shared-core CPU mesh wall time measures TOTAL work across
     all shards, which is exactly what the overhead model needs (redundant
-    halo work shows up directly); ICI collective latency does not — that
-    term needs a real slice and is noted in the artifact.
+    halo work shows up directly); collective latency does not — that
+    term needs real devices and is noted in the output.
     """
     import jax
     import jax.numpy as jnp
@@ -141,159 +141,13 @@ def halo_sweep(ntime: int, fractions, json_path=None) -> int:
                     "and the linear-term fit validates the model; the "
                     "dominant deviation is a per-shard geometry-independent "
                     "cost (chiefly the coarse-CFO grid search: compare "
-                    "cfo_on vs cfo_off c_fix) which this CPU mesh "
-                    "exaggerates ~100x vs the TPU MXU (PERF.md); ICI "
-                    "collective latency needs a real slice" if virtual else
+                    "cfo_on vs cfo_off c_fix), which a CPU mesh may "
+                    "exaggerate vs an accelerator's matmul units; "
+                    "collective latency needs real devices" if virtual else
                     "real-device mesh")}
     print(f"fit (cfo on): c_fix {c_fix*1e3:.0f} ms/shard, c_lin "
           f"{c_lin*1e9:.1f} ns/sample; (cfo off): c_fix {c_fix0*1e3:.0f} ms,"
           f" c_lin {c_lin0*1e9:.1f} ns; efficiency {json.dumps(eff)}",
-          file=sys.stderr)
-    s = json.dumps(out)
-    if json_path:
-        open(json_path, "w").write(s + "\n")
-    print(s)
-    return 0
-
-
-def tpu_shard_cost(fractions, json_path=None, reps_inner: int = 6) -> int:
-    """Measure the per-shard cost model ON THE REAL CHIP (VERDICT r4 item
-    3/missing #3: SCALING_r03's projected multi-host efficiency hinged on
-    the claim that the CPU mesh exaggerates the per-shard FIXED cost ~100x
-    vs the TPU MXU — a claim with no artifact behind it).
-
-    The time-sharded pipeline's per-shard work is exactly
-    rx_fast(shard + halo samples, 1 channel) (parallel/sharded.py
-    halo_demod; the ppermute ships one 87,680-sample halo — bandwidth
-    noise on ICI and not measurable single-chip, noted in the artifact).
-    This measures that program amortized (K iterations inside ONE
-    dispatch with a value-chained digest, RTT excluded — the bench.py
-    harness-hardening pattern) at each sweep geometry, fits
-    t(n_ext) = c_fix + c_lin * n_ext, and projects the weak-scaling
-    efficiency  c_lin*shard / (c_fix + c_lin*(shard+halo))  at the
-    production halo fractions.  Frame-slot machinery scales with the
-    shard (max_frames_per_shard = shard/spf + 2), matching the CPU
-    sweep's geometry rule so the two artifacts are comparable."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from opv_tpu.config import CONFIG
-    from opv_tpu.core import build_bert_frame, encode_frame
-    from opv_tpu.core.framing import frame_to_symbol_bits
-    from opv_tpu.parallel.sharded import HALO_SAMPLES
-    from opv_tpu.rx.fast import rx_fast
-    from opv_tpu.tx.modulator import mod_reset, modulate_bits_fast
-
-    platform = jax.devices()[0].platform
-    print(f"platform: {platform}", file=sys.stderr)
-    spf = CONFIG.samples_per_frame
-
-    rows = []
-    for r in fractions:
-        shard = int(round(HALO_SAMPLES / r / 128)) * 128
-        n_ext = shard + HALO_SAMPLES
-        mfs = shard // spf + 2
-        n_frames = n_ext // spf + 1
-        frames = build_bert_frame("W5NYV", frame_num=np.arange(n_frames))
-        enc = encode_frame(jnp.asarray(frames))
-        bits = np.asarray(frame_to_symbol_bits(enc)).reshape(-1)
-
-        @jax.jit
-        def synth(b):
-            iq, _ = modulate_bits_fast(b, mod_reset())
-            s = (iq[:, 0].astype(jnp.float32) +
-                 1j * iq[:, 1].astype(jnp.float32)).astype(jnp.complex64)
-            return s[:n_ext][None, :]
-
-        x = jax.block_until_ready(synth(jnp.asarray(bits)))
-
-        def shard_k(xx, k):
-            # K per-shard programs in ONE dispatch; the digest feeds back
-            # into one input element (provably +0, opaque to XLA) so the
-            # loop cannot be hoisted/collapsed (PERF.md harness hardening)
-            def body(_i, carry):
-                digest, xv = carry
-                eps = jnp.where(digest > 1e30, 1.0, 0.0).astype(xv.dtype)
-                xv = xv.at[0, 0].add(eps)
-                o = rx_fast(xv, max_frames=mfs)
-                d = (o["n_decoded"].astype(jnp.float32)
-                     + o["metrics"].sum().astype(jnp.float32))
-                return digest + d, xv
-            return jax.lax.fori_loop(0, k, body, (jnp.float32(0), xx))[0]
-
-        ks, ts = (2, 2 + reps_inner), []
-        for k in ks:
-            f = jax.jit(lambda xx, kk=k: shard_k(xx, kk))
-            float(f(x))                   # warm (compile)
-            best = None
-            for _ in range(3):
-                t0 = time.time()
-                float(f(x))               # fetch inside the timed region
-                best = min(best or 9e9, time.time() - t0)
-            ts.append(best)
-            print(f"r={r} shard={shard} k={k}: {best*1e3:.1f} ms",
-                  file=sys.stderr)
-        dt = (ts[1] - ts[0]) / (ks[1] - ks[0])
-        rows.append({"halo_fraction": round(HALO_SAMPLES / shard, 4),
-                     "shard_samples": shard, "ext_samples": n_ext,
-                     "max_frames_per_shard": mfs,
-                     "t_per_shard_ms": round(dt * 1e3, 4),
-                     "t_per_ext_sample_ns": round(dt / n_ext * 1e9, 4)})
-        print(f"r={r}: {dt*1e3:.2f} ms/shard amortized "
-              f"({rows[-1]['t_per_ext_sample_ns']:.3f} ns/ext sample)",
-              file=sys.stderr)
-
-    ne = np.array([row["ext_samples"] for row in rows], float)
-    w = np.array([row["t_per_shard_ms"] for row in rows]) * 1e-3
-    a = np.stack([np.ones_like(ne), ne], axis=1)
-    (c_fix, c_lin), *_ = np.linalg.lstsq(a, w, rcond=None)
-
-    # clamp the fitted intercept at zero for the projection: the raw fit
-    # can go slightly negative (the per-sample cost GROWS mildly with the
-    # frame-slot count at big shards — mfs-scaled detect/extract work —
-    # which a straight line absorbs into a negative intercept), and a
-    # negative c_fix would project efficiency ABOVE the 1/(1+r) halo
-    # bound, which is unphysical
-    c_fix_p = max(float(c_fix), 0.0)
-
-    def eff_at(rr):
-        shard = HALO_SAMPLES / rr
-        return float(c_lin * shard / (c_fix_p + c_lin * (shard
-                                                         + HALO_SAMPLES)))
-
-    eff = {f"r={x}": round(eff_at(x), 4) for x in (0.5, 0.25, 0.10, 0.05)}
-    cpu_fix = None
-    try:                                  # the CPU-mesh fit to compare
-        cpu = json.load(open(pathlib.Path(__file__).resolve().parents[1]
-                             / "SCALING_r03.json"))
-        cpu_fix = cpu["fit_per_shard"]["cfo_on"]["c_fix_s"]
-    except Exception:                     # noqa: BLE001
-        pass
-    out = {"mode": "tpu_shard_cost", "platform": platform,
-           "halo_samples": HALO_SAMPLES, "rows": rows,
-           "fit": {"c_fix_ms": round(float(c_fix) * 1e3, 4),
-                   "c_fix_ms_clamped_for_projection": round(c_fix_p * 1e3,
-                                                            4),
-                   "c_lin_ns_per_sample": round(float(c_lin) * 1e9, 4)},
-           "projected_weak_scaling_efficiency": eff,
-           "cpu_mesh_c_fix_s": cpu_fix,
-           "cpu_vs_tpu_c_fix_ratio": (round(cpu_fix / float(c_fix), 1)
-                                      if cpu_fix and c_fix > 0 else
-                                      "CPU 264 ms vs TPU ~0 (fit intercept "
-                                      "indistinguishable from zero)"),
-           "note": ("single-chip amortized measurement of the per-shard "
-                    "program (rx_fast over shard+halo, CFO grid included); "
-                    "ICI ppermute latency (one 87,680-sample halo, ~700 KB) "
-                    "is not included — at ICI bandwidths it is <<1% of the "
-                    "per-shard compute and does not change the projection")}
-    print(f"fit: c_fix {float(c_fix)*1e3:.2f} ms/shard, c_lin "
-          f"{float(c_lin)*1e9:.2f} ns/sample; projected efficiency "
-          f"{json.dumps(eff)}"
-          + (f"; CPU-mesh c_fix was {cpu_fix*1e3:.0f} ms = "
-             f"{cpu_fix/float(c_fix):.0f}x this"
-             if cpu_fix and float(c_fix) > 0 else
-             f"; CPU-mesh c_fix was {cpu_fix*1e3:.0f} ms vs ~0 here"
-             if cpu_fix else ""),
           file=sys.stderr)
     s = json.dumps(out)
     if json_path:
@@ -311,9 +165,6 @@ def main() -> int:
     ap.add_argument("--halo-sweep", action="store_true",
                     help="sweep halo fraction at fixed ntime and fit the "
                          "overhead model (see halo_sweep docstring)")
-    ap.add_argument("--tpu-shard-cost", action="store_true",
-                    help="measure the per-shard cost model amortized on "
-                         "the real chip (see tpu_shard_cost docstring)")
     ap.add_argument("--fractions", type=float, nargs="+",
                     default=[1.0, 0.5, 0.25, 0.10, 0.05])
     ap.add_argument("--json", default=None)
@@ -327,9 +178,6 @@ def main() -> int:
         jax.config.update("jax_platforms", "cpu")
     else:
         import jax
-
-    if args.tpu_shard_cost:
-        return tpu_shard_cost(args.fractions, args.json)
 
     if args.halo_sweep:
         ntime = args.cpu_mesh or len(jax.devices())

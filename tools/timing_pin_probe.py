@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Pin-the-grid BER decomposition for the streaming engine.
 
-The diagnostic that found both round-5 retime-estimator fixes (PERF.md
-"streaming steady-state tail"): run the SAME seeded captures through the
+The diagnostic that found both round-5 retime-estimator fixes (the
+streaming steady-state tail): run the SAME seeded captures through the
 causal streaming driver with its timing state progressively overridden
 mid-stream, separating decode quality from estimator quality:
 

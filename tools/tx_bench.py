@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """TX (modulator) throughput on the current accelerator — the counterpart
 of the reference's other headline number (opv-mod, 10.7 MS/s on one Xeon
-core, hot loop src/opv-mod.cpp:262-280; BASELINE.md).
+core, hot loop src/opv-mod.cpp:262-280).
 
 With symbol_signs in closed form (bit-parity prefix sum) the whole TX
 chain — frame encode, sync-word interposition, gating signs, waveform
@@ -13,10 +13,10 @@ elementwise program per (channel, sample).  This tool times
   tx_chain   — encode_frame + frame_to_symbol_bits + modulate (full frame
                pipeline from 134-byte payloads)
 
-using the hardened amortized harness (PERF.md): digest folded back into
-the input via in-place dynamic_update_slice, nonlinear digests, scalar
-fetch inside the timed region, two-K differencing so the dispatch RTT
-cancels.
+using an amortized harness: K iterations inside one dispatch with the
+digest folded back into the input via in-place dynamic_update_slice
+(nonlinear digests, so nothing hoists or fuses away), two-K differencing
+so the dispatch and fetch cancel.
 
 Prints one JSON object on stdout; progress to stderr.  Usage:
   python tools/tx_bench.py [--cpu] [--channels 64] [--frames 20]
@@ -46,28 +46,13 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
 
+    from opv_tpu.cli._platform import setup_platform
+    setup_platform("cpu" if args.cpu else "gpu", x64=False)
     import jax
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
     import jax.numpy as jnp
 
     platform = jax.devices()[0].platform
     log(f"platform: {platform}")
-    if platform != "cpu":
-        import os
-        import threading
-        done = threading.Event()
-
-        def _watch():
-            if not done.wait(150):
-                log("pre-flight probe hung; aborting")
-                os._exit(3)
-
-        threading.Thread(target=_watch, daemon=True).start()
-        assert float(jax.jit(lambda: jnp.ones((8, 128)).sum())()) == 1024.0
-        done.set()
-        log("pre-flight ok")
 
     from opv_tpu.config import CONFIG
     from opv_tpu.core import build_bert_frame, encode_frame
@@ -94,8 +79,8 @@ def main() -> int:
         f"({n_out*4/1e6:.0f} MB int16 IQ)")
 
     # wire-packed form: one int32 word per sample whose LE bytes are the
-    # interleaved int16 I,Q wire sample — the (N, 2) stack costs ~5x the
-    # whole synthesis on TPU (minor-axis-2 concat defeats fusion; PERF.md)
+    # interleaved int16 I,Q wire sample — an (N, 2) stack's minor-axis-2
+    # concat defeated fusion on the first accelerator
     mod_b = jax.vmap(lambda b: modulate_bits_wire(b, st0)[0])   # (C, S*40)
 
     def chain(p):
@@ -120,7 +105,7 @@ def main() -> int:
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
-    # hardened amortized harness — see tools/stage_bench.py / PERF.md
+    # amortized harness (module docstring)
     def amortized(step, x, label, ks=(10, 50)):
         nd = x.ndim
         idx = (jnp.int32(0),) * nd
